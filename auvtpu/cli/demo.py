@@ -1,9 +1,9 @@
 """Quickstart demo (rebuild of main.cpp / edge_app).
 
 - cpuExample (main.cpp:212-262): a 10x8 toy grid, a few named points, one
-  single-point call, printed side by side golden vs TPU.
+  single-point call, printed side by side golden vs device.
 - runBenchmark (main.cpp:127-207): 1000x800 sinusoid grid, bilinear batches
-  {1e3,1e4,1e5,1e6}, golden-vs-TPU agreement check and speedup print.
+  {1e3,1e4,1e5,1e6}, golden-vs-device agreement check and speedup print.
 """
 
 from __future__ import annotations
@@ -30,11 +30,11 @@ def toy_example():
     golden = GoldenGrid(elev, ext.min_lon, ext.max_lon, ext.min_lat, ext.max_lat)
     lons = np.array([-175.5, -172.25, -179.9])
     lats = np.array([23.5, 21.75, 26.2])
-    tpu = np.asarray(scattered_bilinear(grid, lons, lats))
+    dev = np.asarray(scattered_bilinear(grid, lons, lats))
     gold = golden.bilinear(lons, lats)
     print("toy 10x8 grid, bilinear:")
-    for lo, la, t, g in zip(lons, lats, tpu, gold):
-        print(f"  ({lo:8.3f},{la:6.3f}) tpu={t:10.3f}  golden={g:10.3f}")
+    for lo, la, t, g in zip(lons, lats, dev, gold):
+        print(f"  ({lo:8.3f},{la:6.3f}) device={t:10.3f}  golden={g:10.3f}")
 
 
 def benchmark(batches=(1_000, 10_000, 100_000, 1_000_000), grid_shape=(800, 1000)):
@@ -49,7 +49,7 @@ def benchmark(batches=(1_000, 10_000, 100_000, 1_000_000), grid_shape=(800, 1000
     golden = GoldenGrid(elev, ext.min_lon, ext.max_lon, ext.min_lat, ext.max_lat)
     key = jax.random.PRNGKey(0)
     print(f"\n{grid_shape[1]}x{grid_shape[0]} sinusoid, bilinear, "
-          "golden(numpy f64, 1 host core) vs TPU:")
+          f"golden(numpy f64, 1 host core) vs {jax.devices()[0].device_kind}:")
     any_failed = False
     for n in batches:
         key, k1, k2 = jax.random.split(key, 3)

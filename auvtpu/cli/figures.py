@@ -51,7 +51,8 @@ def fig_runtimes(grid_a_csv: str, out: str):
     ax.set_yscale("log")
     ax.set_xlabel("batch size (points)")
     ax.set_ylabel("time (ms)")
-    ax.set_title("Grid A batch interpolation runtime (TPU v5e-1 vs reference)")
+    machines = ", ".join(sorted(a["Machine"].astype(str).unique()))
+    ax.set_title(f"Grid A batch interpolation runtime ({machines} vs reference)")
     ax.grid(True, which="both", alpha=0.3)
     ax.legend(fontsize=7, ncol=2)
     fig.tight_layout()
@@ -66,12 +67,16 @@ def fig_accuracy(grid_b_csv: str, out: str):
     if "Region" not in b.columns:
         return
     fig, ax = plt.subplots(figsize=(9, 6), dpi=120)
+    # a '<machine>-centered' row pairs with the '<machine>' row of the same
+    # run (bench_grid_b labels the convention by that suffix)
+    centered = b["Machine"].astype(str).str.endswith("-centered")
+    bases = {m[: -len("-centered")] for m in b.loc[centered, "Machine"].unique()}
     labels, ref_vals, cen_vals = [], [], []
     for (region, removal, method), sub in b.groupby(
         ["Region", "RemovalFraction", "InterpolationType"]
     ):
-        r = sub[sub["Machine"] == "TPU"]["MAE"].mean()
-        c = sub[sub["Machine"] == "TPU-centered"]["MAE"].mean()
+        r = sub[sub["Machine"].isin(bases)]["MAE"].mean()
+        c = sub[sub["Machine"].astype(str).str.endswith("-centered")]["MAE"].mean()
         if np.isnan(r) or np.isnan(c):
             continue
         labels.append(f"{region[:8]} {removal:g} {method[:4]}")
@@ -212,8 +217,8 @@ def fig_coverage(
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--grid-a", default="results/TestingResults_gridA.csv")
-    p.add_argument("--grid-b", default="results/TestingResults_gridB.csv")
+    p.add_argument("--grid-a", default="results_local/TestingResults1.csv")
+    p.add_argument("--grid-b", default="results_local/TestingResults1.csv")
     p.add_argument("--out-dir", default="results/plots")
     p.add_argument("--coverage-region", default="mid_atlantic",
                    help="tile for the Fig. 10 hole-growth sweep ('' to skip)")

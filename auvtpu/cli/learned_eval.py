@@ -48,12 +48,12 @@ def main(argv=None):
     p.add_argument("--tile", type=int, default=48)
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--lr", type=float, default=3e-3)
-    p.add_argument("--results", default="results/TestingResults_gridB.csv")
+    p.add_argument("--results", default="results_local/TestingResults1.csv")
     p.add_argument("--region-suffix", default="",
                    help="appended to the Region column (e.g. '_seed7' for the "
                    "untouched-mask-seed evaluation rows — the hyperparameter "
                    "sweep only ever saw seed 42)")
-    p.add_argument("--machine", default=None, help="default: TPU/CPU by platform")
+    p.add_argument("--machine", default=None, help="default: the device kind")
     p.add_argument("--cpu", action="store_true",
                    help="force the CPU backend (jax.config, pre-device-init)")
     p.add_argument("--save-params", default=None, metavar="NPZ",
@@ -118,7 +118,7 @@ def main(argv=None):
 
     ms = steady_state_ms(fill, iters=5, warmup=1)
     cold, _ = warm_e2e_ms(fill)
-    machine = args.machine or ("TPU" if jax.default_backend() == "tpu" else "CPU")
+    machine = args.machine or jax.devices()[0].device_kind
     w = ResultsWriter(args.results, with_region=True, with_cold=True)
     w.append(
         machine, "Learned", "B", len(truth), ms, args.removal,

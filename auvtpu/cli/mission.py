@@ -1,10 +1,10 @@
 """Mission serving CLI: trajectory-band/atlas kriging for AUV survey tracks.
 
 The reference's deployment surface is `edge_app` (main.cpp): load a grid,
-serve interpolation queries.  This CLI is its trajectory-serving analog on
-the TPU-native stack: load a (masked) grid, take an ordered mission
+serve interpolation queries.  This CLI is its trajectory-serving analog:
+load a (masked) grid, take an ordered mission
 trajectory, let the measured-cost router pick between the packed two-tier
-path and the dense band/atlas fill + MXU windowed resample (ops/band.py),
+path and the dense band/atlas fill + windowed matmul resample (ops/band.py),
 serve the batch, and report route, geometry, resolved fraction, and timings.
 `--export-dir` additionally writes the serving pair as StableHLO artifacts
 (serve.export_mission_fill / export_mission_resample) so production serving
@@ -164,8 +164,8 @@ def main(argv=None):
         extent = (grid.min_lon, grid.max_lon, grid.min_lat, grid.max_lat)
         fp = os.path.join(args.export_dir, "mission_fill.bin")
         rp = os.path.join(args.export_dir, "mission_resample.bin")
-        # router.fill_backend is the RESOLVED backend (auto -> fused on TPU
-        # f32): the artifact must reproduce the live router's fill exactly
+        # router.fill_backend is the RESOLVED backend (ops.backend.resolve):
+        # the artifact must reproduce the live router's fill exactly
         nf = export_mission_fill(
             fp, grid.shape, placed, pr, pc, extent=extent,
             convention=args.convention, fill_backend=router.fill_backend)

@@ -20,6 +20,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--region", default="us_east_coast", choices=list(GEBCO_TILES))
     p.add_argument("--gebco-root", default="/root/reference/GEBCO-Data")
+    p.add_argument("--standin", action="store_true",
+                   help="use a synthetic stand-in of the tile's shape and extent")
     p.add_argument("--subset", type=float, default=0.01, help="sample fraction (main.py used 0.01)")
     p.add_argument(
         "--k", type=int, default=16,
@@ -64,7 +66,7 @@ def main(argv=None):
     )
     args = p.parse_args(argv)
 
-    elev, ext = load_region(args.region, args.gebco_root)
+    elev, ext = load_region(args.region, None if args.standin else args.gebco_root)
     if args.crop is not None:
         from ..config import Extent
 
@@ -85,6 +87,9 @@ def main(argv=None):
 
         writer = ResultsWriter(args.results, with_region=True, with_cold=True)
 
+    import jax
+
+    machine = jax.devices()[0].device_kind
     for method in args.methods:
         t0 = time.time()
         pred, sample_mask = sample_and_reconstruct(
@@ -105,7 +110,7 @@ def main(argv=None):
         )
         if writer is not None:
             writer.append(
-                f"TPU-proto-{args.density}", method, "P", int(hold.sum()),
+                f"{machine}-proto-{args.density}", method, "P", int(hold.sum()),
                 dt * 1e3, 1.0 - args.subset, mae, rmse, mx,
                 region=args.region, cold_ms=dt * 1e3,
             )

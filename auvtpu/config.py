@@ -91,23 +91,28 @@ KERGUELEN_EXTENT = Extent(min_lon=74.615, max_lon=84.785, min_lat=-58.2508, max_
 
 # GEBCO tiles shipped with the reference (bounds from the file names, which is
 # what the reference harness keys off; the actual cell centers sit half a cell
-# inside).  Paths are relative to a GEBCO data root.
+# inside).  Paths are relative to a GEBCO data root; "shape" sizes the
+# synthetic stand-in used where the tile is not available.
 GEBCO_TILES = {
     "mariana": {
         "path": "Mariana Trench/GEBCO_05_May_2025_1bf90a8fdc83/gebco_2024_n13.0188_s9.0088_w137.9828_e142.0148.nc",
         "extent": Extent(min_lon=137.9828, max_lon=142.0148, min_lat=9.0088, max_lat=13.0188),
+        "shape": (963, 968),  # (rows, cols), SURVEY.md §2 row 19
     },
     "mid_atlantic": {
         "path": "Mid-Atlantic Ridge/GEBCO_05_May_2025_861eace686e1/gebco_2024_n1.0071_s-0.5035_w-30.9967_e-29.4993.nc",
         "extent": Extent(min_lon=-30.9967, max_lon=-29.4993, min_lat=-0.5035, max_lat=1.0071),
+        "shape": (363, 359),  # (rows, cols), SURVEY.md §2 row 19
     },
     "east_pacific": {
         "path": "East-Pacific Rise/GEBCO_05_May_2025_c75e2141a65d/gebco_2024_n12.085_s7.9541_w-112.0496_e-105.9851.nc",
         "extent": Extent(min_lon=-112.0496, max_lon=-105.9851, min_lat=7.9541, max_lat=12.085),
+        "shape": (991, 1456),  # (rows, cols), SURVEY.md §2 row 19
     },
     "us_east_coast": {
         "path": "GEBCO_28_Feb_2025_5615bda1e072/gebco_2024_n38.2361_s33.7129_w-73.5773_e-70.4713.nc",
         "extent": Extent(min_lon=-73.5773, max_lon=-70.4713, min_lat=33.7129, max_lat=38.2361),
+        "shape": (1086, 746),  # (rows, cols), SURVEY.md §2 row 19
     },
     "kerguelen": {
         # Tile is a missing large blob in the reference checkout; bounds from
@@ -149,7 +154,7 @@ RESULTS_SCHEMA = (
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Top-level knobs for the TPU engine."""
+    """Top-level knobs for the device engine."""
 
     kriging: KrigingConfig = KrigingConfig()
     fallback: FallbackConfig = FallbackConfig()

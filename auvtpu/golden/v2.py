@@ -1,4 +1,4 @@
-"""Numpy float64 twin of the TPU ops' "v2" semantics.
+"""Numpy float64 twin of the device ops' "v2" semantics.
 
 v2 differs from the bit-exact reference model (engine.py) only in the NaN
 fallback neighbor selection: the full (2R+1)^2 window is eligible (no ring
@@ -7,7 +7,7 @@ cutoff) and the k nearest valid cells are chosen by a *stable*
 collection-ordered candidate table.  Main interpolation paths (bilinear,
 bicubic stencil, kriging system, variogram) are identical to the reference.
 
-This is the oracle the TPU ops are tested against at f32 tolerance.
+This is the oracle the device ops are tested against at f32 tolerance.
 """
 
 from __future__ import annotations

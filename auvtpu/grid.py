@@ -1,10 +1,10 @@
 """Core data model: a regular lat/lon grid resident in device HBM.
 
-TPU-first redesign of the reference's grid state (include/GridH.h:8-17,
+Redesign of the reference's grid state (include/GridH.h:8-17,
 include/GridD.h:22-28).  Differences from the reference, by design:
 
 - **Validity mask instead of in-band NaN.**  The reference stores missing cells
-  as NaN and branches on ``isnan`` inside every kernel.  On TPU we keep a
+  as NaN and branches on ``isnan`` inside every kernel.  Here we keep a
   separate ``valid`` mask (f32 0/1) and a NaN-free ``elev`` array so every op is
   branch-free mask arithmetic; NaN is reintroduced only at I/O boundaries
   (:func:`RegularGrid.to_nan_array`).

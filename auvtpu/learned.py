@@ -5,9 +5,9 @@ the framework beyond the reference's classical methods (the reference has no
 learned path; motivation: "Application of Deep Learning-based Interpolation
 Methods to Nearshore Bathymetry", arXiv:2011.09707 — retrieved in PAPERS.md).
 
-TPU-first choices:
-- convolutions are the MXU path: NHWC layout, channel counts in multiples of
-  8, bf16 compute with f32 parameters/optimizer state (the standard mixed-
+Design choices:
+- convolutions in NHWC layout, channel counts in multiples of 8, bf16
+  compute with f32 parameters/optimizer state (the standard mixed-
   precision recipe), everything under one jitted train step;
 - masked/partial convolutions: each conv sees ``concat(elev * valid, valid)``
   so the network learns validity-aware kernels (a lightweight stand-in for
@@ -55,7 +55,7 @@ if _LEARNED_AVAILABLE:
         """Small residual CNN: (elev*valid, valid, mean_fill) -> residual.
 
         width/depth are tiny by default so the CPU suite can train it; on the
-        chip the same module scales by config.  Compute dtype bf16 (MXU),
+        device the same module scales by config.  Compute dtype bf16,
         params f32.
         """
 

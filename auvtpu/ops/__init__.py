@@ -1,4 +1,4 @@
-"""XLA/Pallas interpolation ops (the TPU-native rebuild of src/kernels.cu).
+"""XLA/Pallas interpolation ops (the device rebuild of src/kernels.cu).
 
 Two query modes:
 
@@ -11,7 +11,7 @@ Two query modes:
 
 Semantics note ("v2"): the reference's NaN fallback walks Chebyshev rings and
 stops mid-search once 4 candidates are held, then runs a selection sort whose
-swaps scramble equal-distance candidates (GridH.cpp:24-140).  On TPU we keep
+swaps scramble equal-distance candidates (GridH.cpp:24-140).  Here we keep
 the same candidate window (radius 10 -> 21x21) and the same distance
 convention (cell centers at +0.5), but select the true k nearest by
 (squared distance, collection order) over the whole window — deterministic,

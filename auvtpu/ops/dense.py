@@ -4,9 +4,9 @@ The reference treats every workload as a scattered point batch, but its two
 real workloads are cell-aligned: Grid B queries the masked cells themselves
 (test_gebco.cpp:152-160 maps row/col straight back to lon/lat) and Grid A's
 expanded grid queries half-integer coordinates (generateExpandedGridQueryPoints,
-test_interpolation.cpp:91-109).  On TPU we exploit that: whole-grid shift/
+test_interpolation.cpp:91-109).  We exploit that: whole-grid shift/
 stencil pipelines with **zero gathers** — every step is a dynamic-slice of an
-edge-padded plane, which XLA fuses into VPU-friendly elementwise code.
+edge-padded plane, which XLA fuses into elementwise code.
 
 Key reformulation: because queries sit exactly on cells, the distance from a
 query to candidate offset (dx, dy) is the *static* scalar
@@ -322,8 +322,7 @@ def window_topk_planes(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, c
     per cell, the k nearest valid neighbors in v2 order with their offsets.
 
     Values and offsets are carried as planes through the early-exit loop —
-    a fatter carry than window_topk_idx, but gather-free: XLA's 1-D random
-    take costs ~30 ns/element on TPU, which dwarfs the extra plane traffic.
+    a fatter carry than window_topk_idx, but gather-free.
     """
     dt = grid.dtype
     zero = grid.elev * 0
@@ -432,30 +431,25 @@ def fill_kriging(grid: RegularGrid, *, max_radius: int = 10, row0=0, col0=0, ste
     block of a larger grid, pass the block's global starting row/col and the
     global (lat_step, lon_step) so the variogram geometry stays correct.
 
-    backend: 'xla' (whole-plane loops), 'pallas' (Pallas selection front-end
-    + XLA solve), or 'fused' (the fully-fused Pallas kernel — selection AND
-    solve in VMEM; supports every argument including with_variance).
+    backend: 'xla' (whole-plane loops, any platform) or 'fused' (the fused
+    selection + solve kernel of pallas/kriging_fill.py, GPU f32; supports
+    every argument).  ops.backend.resolve picks one per platform.
     """
     if backend == "fused":
-        from ..pallas import pallas_fill_kriging
+        from ..pallas import fused_fill_kriging
 
-        return pallas_fill_kriging(
+        return fused_fill_kriging(
             grid, max_radius=max_radius, convention=convention, vparams=vparams,
             model=model, with_variance=with_variance,
             row0=row0, col0=col0, steps=steps,
         )
+    if backend != "xla":
+        raise ValueError(f"unknown backend {backend!r}")
     H, W = grid.shape
     dt = grid.dtype
-    if backend == "pallas":
-        from ..pallas import pallas_topk_full
-
-        cnt, vals, dxs, dys = pallas_topk_full(
-            grid, k=4, max_radius=max_radius, convention=convention
-        )
-    else:
-        cnt, vals, dxs, dys = window_topk_planes(
-            grid, k=4, max_radius=max_radius, convention=convention
-        )
+    cnt, vals, dxs, dys = window_topk_planes(
+        grid, k=4, max_radius=max_radius, convention=convention
+    )
     cgrid = (jax.lax.broadcasted_iota(dt, (H, W), 1) + jnp.asarray(col0, dt)).reshape(-1)
     rgrid = (jax.lax.broadcasted_iota(dt, (H, W), 0) + jnp.asarray(row0, dt)).reshape(-1)
     out = _krige_from_slots(
@@ -483,21 +477,13 @@ def kriging_at_cells(grid: RegularGrid, rows, cols, *, max_radius: int = 10, vpa
     """Kriging predictions at an explicit cell list (Grid B workload).
 
     Computes the dense fill plane and takes the requested cells: the fused
-    whole-plane solve is cheaper than per-cell slot gathers (XLA's random
-    take costs ~30 ns/element — 5 gathers at the cell list dominated the
-    entire pipeline before this formulation)."""
-    if backend == "fused":
-        from ..pallas import pallas_fill_kriging
-
-        plane = pallas_fill_kriging(
-            grid, max_radius=max_radius, convention=convention, vparams=vparams,
-            model=model,
-        )
-    else:
-        plane = fill_kriging(
-            grid, max_radius=max_radius, vparams=vparams, convention=convention,
-            backend=backend, model=model,
-        )
+    whole-plane solve is cheaper than per-cell slot gathers (5 random
+    gathers at the cell list dominated the whole pipeline before this
+    formulation)."""
+    plane = fill_kriging(
+        grid, max_radius=max_radius, vparams=vparams, convention=convention,
+        backend=backend, model=model,
+    )
     rows = jnp.asarray(rows, jnp.int32)
     cols = jnp.asarray(cols, jnp.int32)
     return jnp.take(plane.reshape(-1), rows * grid.num_lon + cols)

@@ -1,9 +1,8 @@
-"""Fast scattered gathers for TPU.
+"""Fast scattered gathers.
 
-XLA lowers 1-element random gathers on TPU to ~8 ns/element scalar loops; a
-(row-block fetch + one-hot lane reduction) formulation is ~2x faster at
-5M-query scale (and the one-hot reduce fuses, so no (N, 128) buffer
-materializes).  Validity rides along for free by NaN-encoding the plane
+A (row-block fetch + one-hot lane reduction) formulation of 1-element random
+gathers: one fetch per 128-lane block, and the one-hot reduce fuses, so no
+(N, 128) buffer materializes.  Validity rides along for free by NaN-encoding the plane
 before the gather and testing finiteness afterwards — one fetch returns both
 (value, mask).
 """

@@ -1,7 +1,7 @@
 """Stencil packs: gather-aligned neighborhood layouts for scattered queries.
 
 A scattered query needs a whole neighborhood (4 bilinear corners, 16 bicubic
-taps, 25 window candidates), and per-index gather cost on TPU dwarfs payload
+taps, 25 window candidates), and per-index gather cost dwarfs payload
 cost.  A *pack* precomputes, for every cell, its neighborhood values into P
 adjacent lanes (P a power of two dividing 128), NaN-encoding validity.  One
 row-block fetch then returns the entire stencil: cell i's P lanes start at
@@ -97,7 +97,8 @@ def fetch_pack(
     oh = (
         sub[:, None] == jax.lax.broadcasted_iota(jnp.int32, (1, g), 1)
     ).astype(pack.dtype)
-    st = jnp.einsum("ng,ngp->pn" if transposed else "ng,ngp->np", oh, rdg)
+    st = jnp.einsum("ng,ngp->pn" if transposed else "ng,ngp->np", oh, rdg,
+                    precision=jax.lax.Precision.HIGHEST)
     if not nan_invalid:
         return st
     return jnp.where(st >= 0.5 * _SENTINEL, jnp.nan, st)
@@ -185,9 +186,8 @@ def _row_fetch(pack: jax.Array, cell_idx, P: int):
 def packed_bilinear(pack: jax.Array, grid: RegularGrid, lons, lats, *, assume_valid: bool = False):
     """Bilinear as ONE fused per-lane weighted sum over the gathered row.
 
-    The row gather is row-count-bound (~6 ns/row regardless of width 8-128,
-    measured on v5e), so the op's ceiling is the fetch itself (~170 M
-    rows/s); the old (N,32,4)-reshape one-hot select forced a minor-dim
+    The row gather is row-count-bound, so the op's ceiling is the fetch
+    itself; a (N,32,4)-reshape one-hot select would force a minor-dim
     relayout costing almost as much as the fetch.  The lerp is linear in the
     4 taps, so corner select + lerp collapse into one (N,128) multiply-reduce
     with per-lane weights built from iota.
@@ -309,11 +309,12 @@ def select_from_stencil(st, offs, x, y, oob, ci, cj, *, k, convention="reference
     top_neg, top_idx = jax.lax.top_k(neg, k)
     slot_ok = jnp.isfinite(top_neg)
     # select via one-hot contraction: take_along_axis lowers to a minor-dim
-    # gather (~17ns/elem on TPU); the (N,k,m) one-hot einsum fuses instead
+    # gather; the (N,k,m) one-hot einsum fuses instead.  HIGHEST keeps the
+    # picks exact (a TF32 product would round depths by metres)
     oh = (
         top_idx[:, :, None] == jax.lax.broadcasted_iota(jnp.int32, (1, 1, m), 2)
     ).astype(st.dtype)
-    pick = lambda a: jnp.einsum("nkm,nm->nk", oh, a)
+    pick = lambda a: jnp.einsum("nkm,nm->nk", oh, a, precision=jax.lax.Precision.HIGHEST)
     vals = jnp.where(slot_ok, pick(jnp.where(ok, st[:, :m], 0.0)), 0.0)
     # ONE composite position code instead of separate dy/dx picks: each
     # (N, k, m) einsum reads the materialized one-hot again (~1.3 GB at 5M

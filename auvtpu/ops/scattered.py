@@ -1,6 +1,6 @@
 """Scattered-query interpolation ops (arbitrary lon/lat batches).
 
-TPU-native rebuild of the per-point CUDA kernels:
+Device rebuild of the per-point CUDA kernels:
 - bilinear  <- bilinearInterpolationKernel (kernels.cu:173-234)
 - bicubic   <- cubicInterpolationKernel    (kernels.cu:275-372)
 - kriging   <- krigingInterpolationKernel  (kernels.cu:403-546)

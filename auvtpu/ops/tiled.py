@@ -1,5 +1,5 @@
 """Tile-streaming scattered ops: sort queries by grid tile, stream one slab
-per block of queries, extract stencils with one-hot matmuls on the MXU.
+per block of queries, extract stencils with one-hot matmuls.
 
 The round-1 scattered path (ops/packs.py) pays 4-32x grid bytes of HBM for
 pre-packed neighborhoods and is bound by the gather unit (~one row-block
@@ -11,8 +11,8 @@ fetch per query).  This path replaces gathers with *compute*:
    (n_blocks, qblk) layout plus a block->tile map;
 3. a ``lax.scan`` over blocks dynamic-slices the tile's (th+2h, tw+2h) slab
    out of a halo-padded plane and extracts every query's stencil as
-   ``onehot_row @ slab`` matmuls (MXU) + rolled one-hot column reductions
-   (VPU) — no gather instructions at all;
+   ``onehot_row @ slab`` matmuls + rolled one-hot column reductions — no
+   gather instructions at all;
 4. the shared ``*_from_stencil`` / ``*_from_select`` math (ops/packs.py)
    finishes the method inside the scan body, so only (n_blocks, qblk)
    results materialize.
@@ -20,7 +20,7 @@ fetch per query).  This path replaces gathers with *compute*:
 Memory: one halo-padded copy of the (sentinel-encoded) grid plus the sorted
 query copies — ~1.1x grid bytes + ~12 bytes/query, vs the bicubic pack's 16x
 or the window pack's 32x grid bytes.  Replaces the per-query gather bound
-(~11 ns) with MXU work at ~50-100 TFLOP/s.
+with matrix work.
 
 Matches the same reference kernels as ops/scattered.py
 (/root/reference/code/src/kernels.cu:173-234, 246-372, 403-546) under v2
@@ -115,7 +115,7 @@ def _partition(x, y, H, W, *, anchor: str, tile, qblk: int):
 
 
 # ---------------------------------------------------------------------------
-# slab stencil extraction (MXU one-hot rows + rolled one-hot column reduces)
+# slab stencil extraction (one-hot row matmuls + rolled one-hot column reduces)
 # ---------------------------------------------------------------------------
 
 def _slab_rows(slab, ly, n_rows: int):
@@ -132,6 +132,7 @@ def _slab_rows(slab, ly, n_rows: int):
         rows.append(
             jax.lax.dot_general(
                 oh, slab, (((1,), (0,)), ((), ())),
+                precision=jax.lax.Precision.HIGHEST,
                 preferred_element_type=slab.dtype,
             )
         )

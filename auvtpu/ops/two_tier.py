@@ -42,29 +42,13 @@ def _resolved_mask_jit(pack, grid, lons, lats, *, k, conv, thresh):
 class TwoTierInterpolator:
     """Reusable scattered-query engine over a (possibly masked) grid."""
 
-    def __init__(self, grid: RegularGrid, *, convention: str = "reference", escalate_cap: int = 1 << 14, backend: str = "auto"):
-        """backend='transposed' routes the fast path through the
-        queries-on-lanes Pallas select kernels (pallas/valid_select.py, the
-        r3 chip winner: kriging 90 -> 113, IDW 98 -> 115 M pts/s at 5M on
-        masked grids); 'fused' is the queries-on-sublanes VMEM kernel
-        (pallas/scattered_select.py, loses on TPU — kept for comparison);
-        'xla' is the packed top_k + one-hot einsum path; 'auto' (default)
-        picks 'transposed' on TPU f32 and 'xla' elsewhere.  Escalation and
-        the resolved mask are backend-independent (identical v2
-        semantics)."""
+    def __init__(self, grid: RegularGrid, *, convention: str = "reference", escalate_cap: int = 1 << 14):
+        """The fast path is the packed top_k + one-hot select of ops.packs;
+        escalation and the resolved mask give identical v2 semantics."""
         self.grid = grid
         self.convention = convention
         self.pack = StencilPack(grid, window_radius=2)
         self.escalate_cap = escalate_cap
-        if backend == "auto":
-            backend = (
-                "transposed"
-                if jax.default_backend() == "tpu" and grid.dtype == jnp.float32
-                else "xla"
-            )
-        if backend not in ("xla", "fused", "transposed"):
-            raise ValueError(backend)
-        self.backend = backend
 
     def _outside_min_d2(self):
         """Infimum of the squared distance from ANY query position inside the
@@ -91,18 +75,11 @@ class TwoTierInterpolator:
             k=k, conv=self.convention, thresh=self._outside_min_d2(),
         )
 
-    def _run(self, fast_fn, slow_fn, lons, lats, k, combined=False):
-        """combined=True: fast_fn returns (fast, resolved_mask, bad_count)
-        from ONE fused kernel call (the transposed backend folds the
-        resolution test into the select's last min-extract slot — saving
-        the second full fetch+select pass _resolved_mask costs)."""
+    def _run(self, fast_fn, slow_fn, lons, lats, k):
         lons = jnp.asarray(lons, self.grid.dtype)
         lats = jnp.asarray(lats, self.grid.dtype)
-        if combined:
-            fast, mask, bad_count = fast_fn(lons, lats)
-        else:
-            fast = fast_fn(lons, lats)
-            mask, bad_count = self._resolved_mask(lons, lats, k)
+        fast = fast_fn(lons, lats)
+        mask, bad_count = self._resolved_mask(lons, lats, k)
         n_bad = int(bad_count)  # the ONLY host sync (a scalar)
         if n_bad == 0:
             return fast
@@ -133,85 +110,25 @@ class TwoTierInterpolator:
     def kriging(self, lons, lats, *, return_variance: bool = False):
         """return_variance=True also returns the ordinary-kriging prediction
         variance per query (same two-tier semantics: the variance of
-        whichever tier produced the prediction; NaN at fallback queries).
-        The variance path runs the XLA packed fast path (the Pallas select
-        kernels do not emit variance) — correctness identical, speed close."""
-        if return_variance:
-            fast = lambda lo, la: packed_kriging(
-                self.pack.window, self.grid, lo, la,
-                window_radius=2, convention=self.convention, with_variance=True,
-            )
-            return self._run(
-                fast,
-                lambda lo, la: scattered_kriging(
-                    self.grid, lo, la, max_radius=10, convention=self.convention,
-                    with_variance=True,
-                ),
-                lons, lats, k=4,
-            )
-        if self.backend == "transposed":
-            from ..pallas import pallas_packed_kriging_t
-
-            fast = lambda lo, la: pallas_packed_kriging_t(
-                self.pack.window, self.grid, lo, la,
-                window_radius=2, convention=self.convention,
-                resolve_thresh=self._outside_min_d2(),
-            )
-            return self._run(
-                fast,
-                lambda lo, la: scattered_kriging(
-                    self.grid, lo, la, max_radius=10, convention=self.convention
-                ),
-                lons, lats, k=4, combined=True,
-            )
-        if self.backend == "fused":
-            from ..pallas import pallas_packed_kriging
-
-            fast = lambda lo, la: pallas_packed_kriging(
-                self.pack.window, self.grid, lo, la,
-                window_radius=2, convention=self.convention,
-            )
-        else:
-            fast = lambda lo, la: packed_kriging(
-                self.pack.window, self.grid, lo, la,
-                window_radius=2, convention=self.convention,
-            )
+        whichever tier produced the prediction; NaN at fallback queries)."""
+        fast = lambda lo, la: packed_kriging(
+            self.pack.window, self.grid, lo, la, window_radius=2,
+            convention=self.convention, with_variance=return_variance,
+        )
         return self._run(
             fast,
             lambda lo, la: scattered_kriging(
-                self.grid, lo, la, max_radius=10, convention=self.convention
+                self.grid, lo, la, max_radius=10, convention=self.convention,
+                with_variance=return_variance,
             ),
             lons, lats, k=4,
         )
 
     def idw(self, lons, lats, k: int = 8):
-        if self.backend == "transposed":
-            from ..pallas import pallas_packed_idw_t
-
-            fast = lambda lo, la: pallas_packed_idw_t(
-                self.pack.window, self.grid, lo, la, k=k,
-                window_radius=2, convention=self.convention,
-                resolve_thresh=self._outside_min_d2(),
-            )
-            return self._run(
-                fast,
-                lambda lo, la: scattered_idw(
-                    self.grid, lo, la, k=k, max_radius=10, convention=self.convention
-                ),
-                lons, lats, k=k, combined=True,
-            )
-        if self.backend == "fused":
-            from ..pallas import pallas_packed_idw
-
-            fast = lambda lo, la: pallas_packed_idw(
-                self.pack.window, self.grid, lo, la, k=k,
-                window_radius=2, convention=self.convention,
-            )
-        else:
-            fast = lambda lo, la: packed_idw(
-                self.pack.window, self.grid, lo, la, k=k,
-                window_radius=2, convention=self.convention,
-            )
+        fast = lambda lo, la: packed_idw(
+            self.pack.window, self.grid, lo, la, k=k,
+            window_radius=2, convention=self.convention,
+        )
         return self._run(
             fast,
             lambda lo, la: scattered_idw(

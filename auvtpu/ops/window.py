@@ -1,4 +1,4 @@
-"""Windowed k-nearest candidate selection — the TPU reformulation of the
+"""Windowed k-nearest candidate selection — the vectorized reformulation of the
 reference's data-dependent ring search (GridH.cpp:24-140, kernels.cu:26-155).
 
 Instead of walking rings with divergent control flow, every query gathers the
@@ -85,7 +85,9 @@ def window_select(
     oh = (
         top_idx[:, :, None] == jax.lax.broadcasted_iota(jnp.int32, (1, 1, m), 2)
     ).astype(val.dtype)
-    pick = lambda a: jnp.einsum("nkm,nm->nk", oh, a.astype(val.dtype))
+    pick = lambda a: jnp.einsum(
+        "nkm,nm->nk", oh, a.astype(val.dtype), precision=jax.lax.Precision.HIGHEST
+    )
     return {
         "val": pick(val),
         "ii": pick(gic).astype(jnp.int32),

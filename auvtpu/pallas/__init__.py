@@ -1,50 +1,14 @@
-"""Pallas TPU kernels for the hot paths.
+"""Pallas GPU kernels for the hot paths.
 
-The pure-XLA dense ops (auvtpu.ops.dense) stream whole-grid planes through
-HBM once per offset chunk; these kernels instead tile the grid into VMEM
-(halo-extended slabs) and run the entire offset loop on-chip, so each cell's
-window scan costs one HBM read of the tile instead of O(offsets) reads.
+- fused_fill_kriging — the dense ordinary-kriging fill with selection and
+  solve fused per output tile (Triton route; tested in interpret mode).
 
-Kernels:
-- idw_fill / mean_fill  — first-k-valid accumulation (VMEM state planes)
-- topk_idx              — slot-index selection for the kriging fill
-
-All kernels reproduce the v2 selection semantics exactly (statically
-distance-sorted offsets, first-k-valid, per-chunk global-saturation early
-exit) and are validated against the XLA ops in tests/test_pallas.py.
+It reproduces the v2 selection semantics of ops.dense exactly (statically
+distance-sorted offsets, first-k-valid, early exit once no cell can take
+another candidate) and is validated against the XLA ops in
+tests/test_pallas.py.
 """
 
-from .window_fill import (
-    pallas_fill_idw,
-    pallas_fill_mean,
-    pallas_topk_idx,
-    pallas_topk_full,
-    pallas_fill_kriging,
-    pallas_available,
-)
-from .scattered_select import (
-    pallas_packed_kriging,
-    pallas_packed_idw,
-    pallas_window_select,
-)
-from .valid_select import (
-    pallas_packed_idw_t,
-    pallas_packed_kriging_t,
-    pallas_kriging_valid,
-    valid_select_t,
-)
+from .kriging_fill import fused_fill_kriging
 
-__all__ = [
-    "pallas_fill_idw",
-    "pallas_fill_mean",
-    "pallas_topk_idx",
-    "pallas_topk_full",
-    "pallas_fill_kriging",
-    "pallas_available",
-    "pallas_packed_kriging",
-    "pallas_packed_idw",
-    "pallas_packed_idw_t",
-    "pallas_packed_kriging_t",
-    "pallas_kriging_valid",
-    "valid_select_t",
-]
+__all__ = ["fused_fill_kriging"]

@@ -1,15 +1,16 @@
-"""Mesh/sharding layer: scale-out across a TPU slice.
+"""Mesh/sharding layer: scale-out across the devices of a host (or hosts).
 
 The reference is strictly single-device (one GPU, one stream, synchronous
 cudaDeviceSynchronize per batch; SURVEY.md §2 'Parallelism & distribution').
 Its only parallel axis is the embarrassingly-parallel query batch.  The
-TPU-native equivalents here:
+equivalents here:
 
 - **query data-parallelism**: shard scattered query batches over the mesh with
-  the grid replicated (the v5e ICI plays the role cudaMemcpy played);
+  the grid replicated (the device interconnect plays the role cudaMemcpy
+  played);
 - **spatial grid sharding**: split large grids into row bands with halo
   exchange (``jax.lax.ppermute`` inside ``shard_map``) so dense fills scale to
-  grids bigger than one chip's HBM — the stencil analog of sequence
+  grids bigger than one device's memory — the stencil analog of sequence
   parallelism.
 """
 

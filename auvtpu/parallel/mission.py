@@ -18,7 +18,7 @@ is identical in both crops; the dense fills are shift-invariant given the
 global (row0, col0) variogram offsets, which are passed as traced values.
 
 No reference analog: the reference's deployment is single-GPU
-(kernels.cu); this is mesh scaling for the TPU-only band-serving capability.
+(kernels.cu); this is mesh scaling for the band-serving capability.
 """
 
 from __future__ import annotations

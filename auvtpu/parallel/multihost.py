@@ -2,7 +2,8 @@
 
 One chip was never the design target: grids shard over a `Mesh` and every
 collective in parallel/spatial.py (`psum`, `ppermute` halos) rides whatever
-fabric the mesh spans — ICI within a slice, DCN across hosts.  This module
+fabric the mesh spans — the device interconnect within a host, the
+network across hosts.  This module
 adds the process-bootstrap glue so the SAME `sharded_fit_fill` /
 `sharded_fill` code runs across multiple processes:
 

@@ -3,11 +3,11 @@ with multi-hop halo exchange.
 
 The dense fill ops (auvtpu.ops.dense) only look max_radius rows/cols away, so
 a sharded grid needs just a max_radius-deep halo from each neighbor.  Halos
-move over ICI via ``jax.lax.ppermute`` inside ``shard_map`` (devices with no
+move between devices via ``jax.lax.ppermute`` inside ``shard_map`` (devices with no
 neighbor receive zeros — exactly the zero-validity padding the global edges
 want), each block runs the unchanged single-device fill on its halo-extended
 block, and the halo is sliced off.  This is the stencil analog of sequence
-parallelism and the scale-up path for grids larger than one chip's HBM
+parallelism and the scale-up path for grids larger than one device's memory
 (SURVEY.md §5 'Long-context').
 
 Two generalizations over the round-1 row-band version:
@@ -32,6 +32,7 @@ from jax import shard_map
 
 from ..grid import RegularGrid
 from ..ops import dense as dense_ops
+from ..ops.backend import pick as pick_backend
 
 
 def _neighbor_perms(n: int):
@@ -77,45 +78,19 @@ def _halo_extend(e, v, R: int, axis_name: str, n: int, axis: int = 0):
     )
 
 
-def _resolve_backend(backend: str, dtype) -> str:
-    """'auto' -> fused Pallas kernels on TPU f32 grids, XLA otherwise."""
-    if backend != "auto":
-        return backend
-    from ..pallas import pallas_available
-
-    return (
-        "fused"
-        if jax.default_backend() == "tpu"
-        and jnp.dtype(dtype) == jnp.float32
-        and pallas_available()
-        else "xla"
-    )
-
-
 def _fill_block(g, method, *, k, power, R, row0=0, col0=0, steps, vparams=None, backend="xla"):
     """Per-shard dense fill used inside the shard_map bodies — one switch so
-    every sharded path offers the same xla/fused backends as the
-    single-device ops (the fused kernels run per device block; idw/mean are
+    every sharded path offers the same backends as the single-device ops
+    (the fused kriging kernel runs per device block; idw/mean are
     geometry-free, kriging threads the block origin + global steps)."""
-    if backend == "fused":
-        from ..pallas import pallas_fill_idw, pallas_fill_kriging, pallas_fill_mean
-
-        if method == "idw":
-            return pallas_fill_idw(g, k=k, power=power, max_radius=R)
-        if method == "window_mean":
-            return pallas_fill_mean(g, k=k, max_radius=R)
-        if method == "kriging":
-            return pallas_fill_kriging(
-                g, max_radius=R, row0=row0, col0=col0, steps=steps, vparams=vparams
-            )
-        raise ValueError(method)
     if method == "idw":
         return dense_ops.fill_idw(g, k=k, power=power, max_radius=R)
     if method == "window_mean":
         return dense_ops.fill_window_mean(g, k=k, max_radius=R)
     if method == "kriging":
         return dense_ops.fill_kriging(
-            g, max_radius=R, row0=row0, col0=col0, steps=steps, vparams=vparams
+            g, max_radius=R, row0=row0, col0=col0, steps=steps, vparams=vparams,
+            backend=backend,
         )
     # 'bilinear' intentionally unsupported: its far-edge semantics are
     # clamp-*duplicate* (GridH.cpp:170-173), which a zero-validity halo
@@ -156,7 +131,7 @@ def _sharded_fill_impl(elev, valid, mesh, method, k, power, max_radius, n_rows, 
         mesh=mesh,
         in_specs=(P("dp", None), P("dp", None)),
         out_specs=P("dp", None),
-        # pallas_call outputs carry no varying-mesh-axes info yet
+        # pallas_call outputs carry no varying-mesh-axes info
         check_vma=(backend != "fused"),
     )
     return fn(elev, valid)[:n_rows]
@@ -281,7 +256,7 @@ def sharded_fit_fill(
             grid.lat_step, grid.lon_step)
     return _sharded_fit_fill_impl(
         elev, valid, mesh, max_radius, max_lag, n_bins, H, meta,
-        backend=_resolve_backend(backend, grid.dtype),
+        backend=pick_backend(backend, grid.dtype),
     )
 
 
@@ -322,7 +297,7 @@ def sharded_fill(
     )
     return _sharded_fill_impl(
         elev, valid, mesh, method, k, power, max_radius, H, meta,
-        backend=_resolve_backend(backend, grid.dtype),
+        backend=pick_backend(backend, grid.dtype),
     )
 
 
@@ -367,5 +342,5 @@ def sharded_fill2d(
     )
     return _sharded_fill2d_impl(
         elev, valid, mesh, method, k, power, max_radius, H, W, meta,
-        backend=_resolve_backend(backend, grid.dtype),
+        backend=pick_backend(backend, grid.dtype),
     )

@@ -21,7 +21,7 @@ the planes living as row bands over a ``jax.sharding.Mesh``:
   distributed twin of the whole-plane fit.
 
 Reference scope note: the reference has nothing distributed (SURVEY.md §2
-'Parallelism & distribution'); this is the TPU-native scale-out of its
+'Parallelism & distribution'); this is the multi-device scale-out of its
 real-time AUV workload (title use case), not a port of any reference code.
 """
 

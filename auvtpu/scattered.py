@@ -4,7 +4,7 @@ pipeline, code/test_interpolation.py + code/main.py).
 The prototype samples ~1% of a GEBCO tile and re-predicts the full grid with
 scipy ``griddata`` (Delaunay linear/cubic) and PyKrige moving-window ordinary
 kriging (n_closest_points=50, backend='loop').  Spatial trees and Delaunay
-triangulations don't map to the MXU; the TPU-native reformulation is tiled
+triangulations don't map to matrix units; the reformulation here is tiled
 brute-force distance matrices (one matmul per tile pair) with streaming top-k
 merge, then per-target models over the k neighbors:
 
@@ -30,18 +30,18 @@ from .variogram import fit_best_model, fit_model, variogram_model
 
 
 def _pairwise_d2(a, b):
-    """Squared distances (|A|^2 + |B|^2 - 2 A.B) — the MXU does the A.B term.
+    """Squared distances (|A|^2 + |B|^2 - 2 A.B) — one matmul does the A.B term.
     a: (n, 2), b: (m, 2) -> (n, m).
 
     Callers MUST center coordinates first: with raw geographic coords the
     |A|^2 terms (~5e3 for lon ~ -73) swamp the ~1e-4 squared distances of
     interest below f32 resolution (catastrophic cancellation).
 
-    precision=HIGHEST is load-bearing: the TPU MXU's default matmul
-    precision is bfloat16, whose ~8-bit mantissa puts ~1e-2 absolute error
-    on the A.B term (coords ~1 after centering) — larger than the ~1e-4
-    squared distances being computed, which silently scrambles neighbor
-    selection on real chips (CPU tests never see it)."""
+    precision=HIGHEST is load-bearing: a reduced-precision f32 matmul
+    (TF32's 10-bit mantissa on a GPU) puts ~1e-3 absolute error on the A.B
+    term (coords ~1 after centering) — larger than the ~1e-4 squared
+    distances being computed, which silently scrambles neighbor selection
+    on the device (CPU tests never see it)."""
     aa = jnp.sum(a * a, axis=1, keepdims=True)
     bb = jnp.sum(b * b, axis=1, keepdims=True)
     ab = jnp.dot(a, b.T, preferred_element_type=jnp.float32, precision=jax.lax.Precision.HIGHEST)
@@ -163,8 +163,8 @@ def _plane_coefs(d2, xy_k, vals_k, targets_xy, *, k: int):
     rel = xy_k - targets_xy[:, None, :]  # center coords at the target
     X = jnp.concatenate([rel, jnp.ones_like(rel[..., :1])], axis=-1)  # (n,k,3)
     Xw = X * w[..., None]
-    A = jnp.einsum("nki,nkj->nij", Xw, X)
-    b = jnp.einsum("nki,nk->ni", Xw, vals_k)
+    A = jnp.einsum("nki,nkj->nij", Xw, X, precision=jax.lax.Precision.HIGHEST)
+    b = jnp.einsum("nki,nk->ni", Xw, vals_k, precision=jax.lax.Precision.HIGHEST)
     A = A + 1e-8 * jnp.eye(3, dtype=A.dtype)
     coef = jnp.linalg.solve(A, b[..., None])[..., 0]
     return coef, rel
@@ -329,8 +329,8 @@ def kriging_knn(points_xy, points_val, targets_xy, *, k: int = 50, vparams=None,
             anisotropy_matrix(float(rx), float(ry), float(theta)),
             jnp.asarray(points_xy).dtype,
         )
-        points_xy = jnp.asarray(points_xy) @ T.T
-        targets_xy = jnp.asarray(targets_xy) @ T.T
+        points_xy = jnp.matmul(jnp.asarray(points_xy), T.T, precision=jax.lax.Precision.HIGHEST)
+        targets_xy = jnp.matmul(jnp.asarray(targets_xy), T.T, precision=jax.lax.Precision.HIGHEST)
         vparams = (nugget, sill, jnp.asarray(1.0, T.dtype))
     elif vparams is None:
         vparams = fit_variogram_scattered(points_xy, points_val, model=model)
@@ -426,7 +426,7 @@ def fit_variogram_scattered_aniso(
 def fit_variogram_scattered(points_xy, points_val, *, n_bins: int = 12, model: str = "exponential"):
     """Empirical semivariance over (subsampled) point pairs + model fit
     — the PyKrige 'fit a variogram model to the data' step
-    (test_interpolation.py:61-68) on the MXU.  model='best' fits the whole
+    (test_interpolation.py:61-68) on the device.  model='best' fits the whole
     zoo and returns the lowest weighted-SSE winner's params (host-level
     choice); otherwise fits the named model."""
     lags, gamma, c = _scattered_semivariance(points_xy, points_val, n_bins=n_bins)

@@ -1,7 +1,7 @@
 """Ahead-of-time export for production serving.
 
 The reference ships compiled binaries (`edge_app`, `test_*`) that embed their
-kernels; the TPU-native equivalent is a *serialized StableHLO artifact*
+kernels; the equivalent here is a *serialized StableHLO artifact*
 (jax.export): trace + lower the jitted program once, write the portable
 artifact, and serve it later without retracing Python — across processes and
 jax minor versions, on any backend that can compile StableHLO.
@@ -70,7 +70,7 @@ def export_fill(path: str, shape, *, extent=(0.0, 1.0, 0.0, 1.0), method: str = 
     """Serialize the jitted dense fill for a fixed grid geometry to ``path``.
 
     platforms: lowering targets (default: the current backend only); pass
-    e.g. ("tpu", "cpu") to produce one artifact servable on both.
+    e.g. ("cuda", "cpu") to produce one artifact servable on both.
     Returns the byte size written."""
     fill = _fill_fn(tuple(shape), tuple(extent), method, max_radius, vparams, convention, backend)
     spec = jax.ShapeDtypeStruct(tuple(shape), jnp.float32)
@@ -241,7 +241,7 @@ def export_mission_resample(path: str, shape, placed, pr: int, pc: int,
                             chunk: int = 512, win_rows: int = 48,
                             win_cols: int = 128, masked: bool = False,
                             platforms=None):
-    """Serialize the chunked MXU windowed-bilinear resample over a K-page
+    """Serialize the chunked matmul windowed-bilinear resample over a K-page
     band atlas for a fixed page placement and query batch size:
     ``run(planes, vmasks, lons, lats) -> (z, resolved)``.  Unresolved
     queries (page straddle / undefined cells) return NaN + False and should

@@ -2,7 +2,7 @@
 
 The reference is a batch study, but its title workload is *real-time* AUV
 mapping: sonar observations arrive as swaths while the vehicle moves, and the
-map around the vehicle must stay interpolated.  TPU-native design:
+map around the vehicle must stay interpolated.  Design:
 
 - the mosaic lives in HBM as (elev, valid) planes that are updated **in
   place** via buffer donation (no reallocation per swath, mirroring how GridD
@@ -15,7 +15,7 @@ map around the vehicle must stay interpolated.  TPU-native design:
   slice and runs the dense fill ops on it — constant shapes, so the whole
   loop is two compiled programs regardless of vehicle position.
 
-For mosaics larger than one chip, :class:`auvtpu.parallel.streaming.
+For mosaics larger than one device, :class:`auvtpu.parallel.streaming.
 ShardedStreamingInterpolator` keeps these planes row-band-sharded over a
 mesh: ingest scatters route to the owning band and the window crop is
 psum-assembled from the bands before running the same fill program.
@@ -30,7 +30,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from .grid import RegularGrid
-from .ops import fill_idw, fill_window_mean, kriging_at_cells, fill_kriging
+from .ops import fill_idw, fill_window_mean, fill_kriging
+from .ops.backend import pick as pick_backend
 
 
 @partial(jax.jit, donate_argnums=(0, 1))
@@ -72,48 +73,36 @@ def _fill_window_planes(we, wv, meta, r0, c0, vparams, *, method, k, max_radius,
     path (psum-assembled crop, parallel.streaming), so both run literally
     the same program on the cropped planes.
 
-    backend='fused' routes through the fused Pallas kernels (TPU; the
-    sharded path runs them on the replicated crop, outside the shard_map,
-    so single and sharded stay bit-identical to each other)."""
+    backend='fused' runs the kriging fill through the fused GPU kernel (the
+    sharded path runs it on the replicated crop, outside the shard_map, so
+    single and sharded stay bit-identical to each other); idw and mean run
+    the XLA pipelines under either backend."""
     min_lon, max_lon, min_lat, max_lat = meta
     g = RegularGrid(
         elev=we, valid=wv,
         min_lon=min_lon, max_lon=max_lon, min_lat=min_lat, max_lat=max_lat,
     )
-    if backend == "fused":
-        from .pallas import pallas_fill_idw, pallas_fill_kriging, pallas_fill_mean
     if variance:
         if method != "kriging":
             raise ValueError("variance surfaces are kriging-only")
-        if backend == "fused":
-            _, var = pallas_fill_kriging(
-                g, max_radius=max_radius, vparams=vparams,
-                row0=r0, col0=c0, steps=steps, with_variance=True,
-            )
-        else:
-            _, var = fill_kriging(
-                g, max_radius=max_radius, vparams=vparams,
-                row0=r0, col0=c0, steps=steps, with_variance=True,
-            )
+        _, var = fill_kriging(
+            g, max_radius=max_radius, vparams=vparams,
+            row0=r0, col0=c0, steps=steps, with_variance=True, backend=backend,
+        )
         return jnp.where(wv > 0.5, 0.0, var)
     if method == "idw":
-        plane = (pallas_fill_idw if backend == "fused" else fill_idw)(
-            g, k=k, max_radius=max_radius
-        )
+        plane = fill_idw(g, k=k, max_radius=max_radius)
     elif method == "mean":
-        plane = (pallas_fill_mean if backend == "fused" else fill_window_mean)(
-            g, k=k, max_radius=max_radius
-        )
+        plane = fill_window_mean(g, k=k, max_radius=max_radius)
     elif method == "kriging":
         # the window is a sub-plane of the mosaic: pass the MOSAIC cell
         # steps and the window's global origin so the variogram geometry is
         # in mosaic coordinates (a window grid naively built from the full
         # extent would inflate every distance by (W-1)/(win-1) — the exact
         # sub-plane mechanism fill_kriging's steps=/row0/col0 exists for)
-        fk = pallas_fill_kriging if backend == "fused" else fill_kriging
-        plane = fk(
+        plane = fill_kriging(
             g, max_radius=max_radius, vparams=vparams,
-            row0=r0, col0=c0, steps=steps,
+            row0=r0, col0=c0, steps=steps, backend=backend,
         )
     else:
         raise ValueError(method)
@@ -174,21 +163,7 @@ class StreamingInterpolator:
         self.method = method
         self.k = k
         self.max_radius = max_radius
-        if backend == "auto":
-            # fused Pallas window fills on the chip (same kernels as the
-            # dense headline path); XLA elsewhere and for f64 mosaics
-            import jax as _jax
-
-            from .pallas import pallas_available
-
-            backend = (
-                "fused"
-                if _jax.default_backend() == "tpu"
-                and jnp.dtype(dtype) == jnp.float32
-                and pallas_available()
-                else "xla"
-            )
-        self.backend = backend
+        self.backend = pick_backend(backend, dtype)
         self._vparams = None  # fitted (nugget, sill, range); None = defaults
         self._meta = (
             float(extent.min_lon), float(extent.max_lon),

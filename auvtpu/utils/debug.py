@@ -2,7 +2,7 @@
 
 The reference's closest artifacts are the CUDA `-g -G` debug build flags
 (CMakeLists.txt:7) and a tid-0 printf inside the kriging kernel
-(kernels.cu:469-476).  The TPU-native equivalent is a process-wide checking
+(kernels.cu:469-476).  The equivalent here is a process-wide checking
 mode:
 
 - ``jax_debug_nans``: every jitted computation re-runs op-by-op when a NaN

@@ -248,8 +248,8 @@ def fit_anisotropic(lags, angles, gamma, counts, *, model: str = "exponential", 
         tv, lam = carry
         r = resid(tv)
         J = jac(tv)
-        A = J.T @ J
-        g = J.T @ r
+        A = jnp.matmul(J.T, J, precision=jax.lax.Precision.HIGHEST)
+        g = jnp.matmul(J.T, r, precision=jax.lax.Precision.HIGHEST)
         dA = jnp.diag(jnp.maximum(jnp.diag(A), 1e-12))
         delta = jnp.linalg.solve(A + lam * dA, g)
         delta = jnp.clip(delta, -1.0, 1.0)
@@ -365,9 +365,9 @@ def fit_model(lags, gamma, counts, *, model: str = "exponential", iters: int = 3
     def step(theta, _):
         r = resid(theta)
         J = jac(theta)
-        A = J.T @ J
+        A = jnp.matmul(J.T, J, precision=jax.lax.Precision.HIGHEST)
         damp = 1e-4 * jnp.maximum(jnp.trace(A) / 3.0, 1e-12)
-        g = J.T @ r
+        g = jnp.matmul(J.T, r, precision=jax.lax.Precision.HIGHEST)
         delta = jnp.linalg.solve(A + damp * jnp.eye(3, dtype=dt), g)
         # trust region on the log step keeps early iterations stable
         delta = jnp.clip(delta, -2.0, 2.0)

@@ -67,7 +67,7 @@ def test_fill_band_matches_whole_grid_fill():
 
 
 def test_band_resample_parity_dense():
-    # chunked MXU resample == direct bilinear on the band plane (f64 ref)
+    # chunked matmul resample == direct bilinear on the band plane (f64 ref)
     elev = shelf_seamount(96, 160)
     grid = RegularGrid.dense(elev, EXT)
     band = fill_band(grid, 16, 48, 0, 160, method="idw")

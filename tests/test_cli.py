@@ -33,7 +33,7 @@ def test_bench_grid_a_cli(tmp_path):
     df = pd.read_csv(results)
     assert len(df) == 2
     assert set(df["GridType"]) == {"A"}
-    up = pd.read_csv(str(tmp_path / "up_tpu_cubic.csv"), header=None).to_numpy()
+    up = pd.read_csv(str(tmp_path / "up_cubic.csv"), header=None).to_numpy()
     assert up.shape == (79, 99)
 
 
@@ -59,25 +59,6 @@ def test_bench_grid_a_cli_selection_exact(tmp_path):
     assert set(df["InterpolationType"]) == {"Bilinear", "Cubic", "Kriging"}
 
 
-@pytest.mark.slow  # fused-vs-XLA parity is covered in test_pallas; this adds only CLI plumbing
-def test_bench_grid_a_cli_fused_backend(tmp_path):
-    # the fused Pallas scattered backend through the CLI (interpret mode)
-    from jax.experimental.pallas import tpu as pltpu
-
-    from auvtpu.cli.bench_grid_a import main
-
-    grid = str(tmp_path / "grid.npy")
-    np.save(grid, shelf_seamount(40, 50))
-    results = str(tmp_path / "res_fused.csv")
-    with pltpu.force_tpu_interpret_mode():
-        main([
-            "--grid-csv", grid, "--batch-sizes", "300", "--results", results,
-            "--methods", "Kriging", "IDW", "--backend", "fused",
-        ])
-    df = pd.read_csv(results)
-    assert len(df) == 2
-
-
 def test_bench_grid_b_cli_with_csv_inputs(tmp_path):
     from auvtpu.cli.bench_grid_b import main
     from auvtpu.io import write_reference_missing
@@ -99,7 +80,10 @@ def test_bench_grid_b_cli_with_csv_inputs(tmp_path):
     assert len(df) == 4  # Bilinear, Cubic, Kriging, IDW
     assert (df["BatchSize"] == len(vals)).all()
     assert df["RMSE"].notna().all()
-    pts = pd.read_csv(str(tmp_path / "pts_tpu_kriging.csv"))
+    import jax
+
+    kind = jax.devices()[0].device_kind.lower()
+    pts = pd.read_csv(str(tmp_path / f"pts_{kind}_kriging.csv"))
     assert list(pts.columns) == ["lon", "lat", "interpolated_value"]
     assert len(pts) == len(vals)
 
@@ -167,12 +151,12 @@ def test_analyze_cli(tmp_path):
 
     results = str(tmp_path / "res.csv")
     w = ResultsWriter(results, with_region=True)
-    for mach in ("CPU", "TPU"):
+    for mach in ("CPU", "GPU"):
         w.append(mach, "Bilinear", "A", 1000, 1.5, None, None, None, None)
         w.append(mach, "Kriging", "B", 500, 2.5, 0.1, 10.0, 12.0, 99.0, region="mariana")
     main(["--results", results, "--out-dir", str(tmp_path)])
     a = pd.read_csv(str(tmp_path / "grid_A_runtimes_averaged.csv"))
-    assert "CPU Bilinear" in a.columns and "TPU Bilinear" in a.columns
+    assert "CPU Bilinear" in a.columns and "GPU Bilinear" in a.columns
     b = pd.read_csv(str(tmp_path / "mariana_runtimes_errors.csv"))
     assert len(b) == 1
 
@@ -217,7 +201,8 @@ def test_figures_cli(tmp_path):
     # high removals: at f=0.05 the expected hole count on the small
     # Mid-Atlantic tile is < 1 (f^3 * 6.5k masked cells), so the growth
     # assertion needs fractions where holes are statistically certain
-    df = fig_coverage(png, csv, region="mid_atlantic", removals=(0.2, 0.5))
+    df = fig_coverage(png, csv, region="mid_atlantic", removals=(0.2, 0.5),
+                      gebco_root=None)  # same-shape synthetic stand-in
     assert os.path.exists(png) and os.path.exists(csv)
     assert len(df) == 2
     # the paper's qualitative finding: holes grow superlinearly with removal
@@ -230,7 +215,7 @@ def test_figures_cli(tmp_path):
     a_csv = str(tmp_path / "a.csv")
     pd.DataFrame(
         {
-            "Machine": ["TPU"] * 2,
+            "Machine": ["GPU"] * 2,
             "InterpolationType": ["Bilinear", "Kriging"],
             "GridType": ["A", "A"],
             "BatchSize": [1000, 1000],
@@ -283,13 +268,13 @@ def test_prototype_cli(capsys, tmp_path):
     res = str(tmp_path / "proto.csv")
     main(["--region", "mid_atlantic", "--subset", "0.02", "--methods", "idw",
           "--k", "8", "--density", "strip", "--results", res,
-          "--crop", "120", "160"])
+          "--crop", "120", "160", "--standin"])
     out = capsys.readouterr().out
     assert "idw" in out and "% of range" in out and "(strip)" in out
     import pandas as pd
 
     df = pd.read_csv(res)
-    assert list(df["Machine"]) == ["TPU-proto-strip"]
+    assert len(df) == 1 and df["Machine"].iloc[0].endswith("-proto-strip")
     assert list(df["GridType"]) == ["P"]
     assert df["MAE"].iloc[0] > 0 and df["RMSE"].iloc[0] >= df["MAE"].iloc[0]
 
@@ -306,7 +291,7 @@ def test_prototype_cli_full_tile(capsys, tmp_path):
     import pandas as pd
 
     df = pd.read_csv(res)
-    assert list(df["Machine"]) == ["TPU-proto-strip"]
+    assert len(df) == 1 and df["Machine"].iloc[0].endswith("-proto-strip")
 
 
 def test_fig_variogram_models(tmp_path):
@@ -316,7 +301,7 @@ def test_fig_variogram_models(tmp_path):
     from auvtpu.cli.figures import fig_variogram_models
 
     rows = []
-    for mach, mae in [("TPU", 14.8), ("TPU-gaussian", 12.9), ("TPU-spherical", 14.9)]:
+    for mach, mae in [("GPU", 14.8), ("GPU-gaussian", 12.9), ("GPU-spherical", 14.9)]:
         rows.append(dict(
             Machine=mach, InterpolationType="Kriging", GridType="B",
             BatchSize=1303, Time=16.0, RemovalFraction=0.01, MAE=mae,
@@ -349,7 +334,7 @@ def test_learned_eval_cli_synthetic(tmp_path):
 def test_demo_cli(capsys):
     # rebuild of the reference's de-facto smoke (main.cpp:184-203): toy grid
     # side-by-side values + benchmark validation loop; main() exits nonzero
-    # if any batch's golden-vs-TPU validation fails (VERDICT r3 item 5)
+    # if any batch's golden-vs-device validation fails
     from auvtpu.cli.demo import main
 
     main(["--batches", "200", "1000", "--grid-shape", "60", "80"])

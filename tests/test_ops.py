@@ -1,4 +1,4 @@
-"""TPU-op parity tests: every XLA op vs the float64 golden oracles.
+"""Device-op parity tests: every XLA op vs the float64 golden oracles.
 
 - main interpolation paths (bilinear / bicubic stencil / kriging system) are
   semantically identical to the reference -> compared against the bit-exact
@@ -229,7 +229,7 @@ def test_centered_convention_parity_and_improvement():
         convention="centered",
     )
     rr, cc = rc[:, 0], rc[:, 1]
-    # parity: TPU centered ops match the centered float64 oracle
+    # parity: device centered ops match the centered float64 oracle
     got = np.asarray(fill_window_mean(grid, k=4, convention="centered"))[rr, cc]
     want = gv2c.cubic(cc.astype(float), rr.astype(float))
     assert_close(got, want)

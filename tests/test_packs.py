@@ -168,34 +168,36 @@ def test_packed_assume_valid_matches_general_on_valid_grid():
         np.testing.assert_array_equal(a, b)
 
 
-def test_two_tier_fused_backend_matches_xla():
-    from jax.experimental.pallas import tpu as pltpu
+def _assert_v2(got, want, atol=0.15, frac=0.99):
+    """f32 device op vs the f64 v2 oracle: same NaN pattern, |diff| <= atol
+    at >= frac of the queries (f32 near-tie neighbour flips)."""
+    assert (np.isnan(got) == np.isnan(want)).all()
+    m = ~np.isnan(want)
+    assert (np.abs(got[m] - want[m]) <= atol).mean() >= frac
 
+
+def test_two_tier_fused_backend_matches_xla():
+    """The two-tier engine (packed fast path + radius-10 escalation) vs the
+    f64 v2 oracle on a masked grid."""
+    from auvtpu.golden.v2 import GoldenV2
     from auvtpu.ops import TwoTierInterpolator
 
     grid = _mk(masked=True)
     lons, lats = _queries(400, seed=21)
-    a = TwoTierInterpolator(grid, backend="xla")
-    with pltpu.force_tpu_interpret_mode():
-        b = TwoTierInterpolator(grid, backend="fused")
-        got_k = np.asarray(b.kriging(lons, lats))
-        got_i = np.asarray(b.idw(lons, lats))
-    want_k = np.asarray(a.kriging(lons, lats))
-    want_i = np.asarray(a.idw(lons, lats))
-    for got, want in [(got_k, want_k), (got_i, want_i)]:
-        assert (np.isnan(got) == np.isnan(want)).all()
-        m = ~np.isnan(want)
-        np.testing.assert_allclose(got[m], want[m], rtol=1e-4, atol=1e-3)
+    tt = TwoTierInterpolator(grid)
+    gv2 = GoldenV2(grid.to_nan_array(), EXT.min_lon, EXT.max_lon, EXT.min_lat, EXT.max_lat)
+    lo, la = lons.astype(np.float64), lats.astype(np.float64)
+    _assert_v2(np.asarray(tt.kriging(lons, lats)), gv2.kriging(lo, la))
+    _assert_v2(np.asarray(tt.idw(lons, lats)), gv2.idw(lo, la, k=8))
 
 
 def test_two_tier_transposed_backend_matches_xla():
-    from jax.experimental.pallas import tpu as pltpu
-
+    """Escalation on a carved hole: queries at its center MUST escalate (no
+    valid cell within the radius-2 window), and the escalated answers match
+    the f64 v2 oracle."""
+    from auvtpu.golden.v2 import GoldenV2
     from auvtpu.ops import TwoTierInterpolator
-    from auvtpu.pallas import pallas_packed_idw_t, pallas_packed_kriging_t
 
-    # carve an 11x11 hole so queries at its center MUST escalate (no valid
-    # cell within the radius-2 window)
     elev = shelf_seamount(H, W)
     elev, _, _ = mask_grid(elev, 0.08, seed=12)
     elev[30:41, 30:41] = np.nan
@@ -203,38 +205,23 @@ def test_two_tier_transposed_backend_matches_xla():
     lons, lats = _queries(400, seed=21)
     lons = np.concatenate([lons, np.array([35.0, 35.4], np.float32)])
     lats = np.concatenate([lats, np.array([35.0, 34.6], np.float32)])
-    a = TwoTierInterpolator(grid, backend="xla")
-    # the fused in-kernel resolution row must equal _resolved_mask_jit
-    # (same found>=k && kth-d2<thresh test), so escalation picks the SAME
-    # query set
-    mask_k, bad_k = a._resolved_mask(lons, lats, 4)
-    mask_i, bad_i = a._resolved_mask(lons, lats, 8)
-    thresh = a._outside_min_d2()
-    with pltpu.force_tpu_interpret_mode():
-        _, fm_k, fb_k = pallas_packed_kriging_t(
-            a.pack.window, grid, lons, lats, resolve_thresh=thresh, tile_n=256
-        )
-        _, fm_i, fb_i = pallas_packed_idw_t(
-            a.pack.window, grid, lons, lats, k=8, resolve_thresh=thresh, tile_n=256
-        )
-        b = TwoTierInterpolator(grid, backend="transposed")
-        got_k = np.asarray(b.kriging(lons, lats))
-        got_i = np.asarray(b.idw(lons, lats))
-    np.testing.assert_array_equal(np.asarray(fm_k), np.asarray(mask_k))
-    np.testing.assert_array_equal(np.asarray(fm_i), np.asarray(mask_i))
-    assert int(fb_k) == int(bad_k) and int(fb_i) == int(bad_i)
+    tt = TwoTierInterpolator(grid)
+    mask_k, bad_k = tt._resolved_mask(lons, lats, 4)
     assert int(bad_k) > 0  # the fixture must actually exercise escalation
-    want_k = np.asarray(a.kriging(lons, lats))
-    want_i = np.asarray(a.idw(lons, lats))
-    for got, want in [(got_k, want_k), (got_i, want_i)]:
-        assert (np.isnan(got) == np.isnan(want)).all()
-        m = ~np.isnan(want)
-        np.testing.assert_allclose(got[m], want[m], rtol=1e-4, atol=1e-3)
+    assert not bool(np.asarray(mask_k)[-2:].any())
+    gv2 = GoldenV2(elev, EXT.min_lon, EXT.max_lon, EXT.min_lat, EXT.max_lat)
+    lo, la = lons.astype(np.float64), lats.astype(np.float64)
+    got_k = np.asarray(tt.kriging(lons, lats))
+    got_i = np.asarray(tt.idw(lons, lats))
+    _assert_v2(got_k, gv2.kriging(lo, la))
+    _assert_v2(got_i, gv2.idw(lo, la, k=8))
+    # the hole-center queries come from the escalation tier
+    np.testing.assert_allclose(got_k[-2:], gv2.kriging(lo[-2:], la[-2:]), atol=0.15)
 
 
 def test_tie_line_queries_fast_equals_slow():
     """Constructed tie-line queries (the 3fx+2fy=1 family): the packed fast
-    path, its radius-10 escalation, the fused Pallas select, and the GoldenV2
+    path, its radius-10 escalation, and the GoldenV2
     oracle must all break the equal-actual-d2 tie the same way — by reference
     COLLECTION order (ring 1 before ring 2), never by the static window-table
     order.  Regression test for the old distance-sorted pack layout, under
@@ -294,17 +281,6 @@ def test_tie_line_queries_fast_equals_slow():
     np.testing.assert_allclose(got_i, want_i, rtol=1e-5, atol=1e-3)
     np.testing.assert_allclose(got_i, gv2.idw(lons, lats, k=4), rtol=1e-4, atol=1e-2)
 
-    # fused Pallas select (interpret mode) uses the same collection-order table
-    from auvtpu.pallas import pallas_available
-
-    if pallas_available():
-        from jax.experimental.pallas import tpu as pltpu
-
-        from auvtpu.pallas import pallas_window_select
-
-        with pltpu.force_tpu_interpret_mode():
-            sel_f = pallas_window_select(sp.window, grid, x, y, k=4, window_radius=2)
-            np.testing.assert_allclose(np.asarray(sel_f["val"]), want_val, atol=1e-5)
 
 
 def test_packed_kriging_valid_matches_windowed():
@@ -378,7 +354,7 @@ def test_two_tier_variance_matches_full_window():
     elev = shelf_seamount(H, W)
     elev, _, _ = mask_grid(elev, 0.6, seed=31)
     grid = RegularGrid.from_nan_array(elev, EXT)
-    tt = TwoTierInterpolator(grid, escalate_cap=64, backend="xla")
+    tt = TwoTierInterpolator(grid, escalate_cap=64)
     r = np.random.RandomState(9)
     lons = r.uniform(1e-6, W - 1 - 1e-6, 500).astype(np.float32)
     lats = r.uniform(1e-6, H - 1 - 1e-6, 500).astype(np.float32)

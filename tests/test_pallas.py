@@ -1,533 +1,158 @@
-"""Pallas kernel parity vs the XLA dense ops (interpret mode on CPU).
+"""The fused kriging fill kernel (pallas/kriging_fill.py) vs the XLA path.
 
-Real-TPU timing/validation runs in bench.py / scripts; here the kernels run
-under the Pallas interpreter so the suite stays chip-free.
+Here the kernel runs in the Pallas interpreter (backend="triton",
+interpret=True); the `gpu`-marked test at the end compiles it for the card.
+Selection must be identical to ops.dense (same offset order, first-k-valid,
+ties); predictions agree to f32 rounding.
 """
 
 import numpy as np
 import pytest
 
+import jax
+import jax.numpy as jnp
+
 from auvtpu.config import Extent
 from auvtpu.grid import RegularGrid
 from auvtpu.masking import mask_grid
-from auvtpu.ops import fill_idw, fill_window_mean, window_topk_idx
-from auvtpu.pallas import pallas_available
+from auvtpu.ops import fill_kriging
+from auvtpu.ops.dense import window_topk_planes
+from auvtpu.pallas import fused_fill_kriging
 from auvtpu.synthetic import shelf_seamount
-
-if not pallas_available():  # pragma: no cover
-    pytest.skip("pallas unavailable", allow_module_level=True)
-
-from jax.experimental.pallas import tpu as pltpu
 
 H, W = 96, 80
 
 
+def _grid(h=H, w=W, removal=0.2, seed=9):
+    elev, _, _ = mask_grid(shelf_seamount(h, w), removal, seed=seed)
+    return RegularGrid.from_nan_array(elev, Extent(0.0, float(w - 1), 0.0, float(h - 1)))
+
+
 @pytest.fixture(scope="module")
 def grid():
-    elev = shelf_seamount(H, W)
-    elev, _, _ = mask_grid(elev, 0.2, seed=9)
-    return RegularGrid.from_nan_array(elev, Extent(0.0, float(W - 1), 0.0, float(H - 1)))
+    return _grid()
 
 
-def _interp():
-    return pltpu.force_tpu_interpret_mode()
+def _fused(grid, **kw):
+    return fused_fill_kriging(grid, interpret=True, **kw)
 
 
-def test_pallas_idw_matches_xla(grid):
-    from auvtpu.pallas import pallas_fill_idw
-
-    with _interp():
-        got = np.asarray(pallas_fill_idw(grid, k=8, max_radius=5, tile=(32, 32)))
-    want = np.asarray(fill_idw(grid, k=8, max_radius=5))
+def _assert_matches(got, want, rtol=1e-4, atol=0.05):
+    got, want = np.asarray(got), np.asarray(want)
     assert (np.isnan(got) == np.isnan(want)).all()
-    both = ~np.isnan(want)
-    np.testing.assert_allclose(got[both], want[both], rtol=1e-5, atol=1e-3)
+    m = ~np.isnan(want)
+    np.testing.assert_allclose(got[m], want[m], rtol=rtol, atol=atol)
 
 
-@pytest.mark.slow  # variant of the fill kernel; idw gates the same code path
-def test_pallas_mean_matches_xla(grid):
-    from auvtpu.pallas import pallas_fill_mean
-
-    with _interp():
-        got = np.asarray(pallas_fill_mean(grid, k=4, max_radius=5, tile=(32, 32)))
-    want = np.asarray(fill_window_mean(grid, k=4, max_radius=5))
-    assert (np.isnan(got) == np.isnan(want)).all()
-    both = ~np.isnan(want)
-    np.testing.assert_allclose(got[both], want[both], rtol=1e-5, atol=1e-3)
-
-
-def test_pallas_topk_idx_matches_xla(grid):
-    from auvtpu.pallas import pallas_topk_idx
-
-    with _interp():
-        cnt_p, idx_p = pallas_topk_idx(grid, k=4, max_radius=5, tile=(32, 32))
-    cnt_x, idx_x = window_topk_idx(grid, k=4, max_radius=5)
-    np.testing.assert_array_equal(np.asarray(cnt_p), np.asarray(cnt_x))
-    for s in range(4):
-        np.testing.assert_array_equal(np.asarray(idx_p[s]), np.asarray(idx_x[s]))
-
-
-@pytest.mark.slow  # variant: topk_idx gates the kernel; this adds the full-payload form
-def test_pallas_topk_full_matches_xla(grid):
-    from auvtpu.pallas import pallas_topk_full
-    from auvtpu.ops.dense import window_topk_planes
-
-    with _interp():
-        cnt_p, vals_p, dxs_p, dys_p = pallas_topk_full(grid, k=4, max_radius=5, tile=(32, 32))
-    cnt_x, vals_x, dxs_x, dys_x = window_topk_planes(grid, k=4, max_radius=5)
-    np.testing.assert_array_equal(np.asarray(cnt_p), np.asarray(cnt_x))
-    cnt = np.asarray(cnt_x)
-    for s in range(4):
-        live = cnt > s  # empty slots are don't-care
-        np.testing.assert_allclose(
-            np.asarray(vals_p[s])[live], np.asarray(vals_x[s])[live], rtol=1e-6
-        )
-        np.testing.assert_array_equal(np.asarray(dxs_p[s])[live], np.asarray(dxs_x[s])[live])
-        np.testing.assert_array_equal(np.asarray(dys_p[s])[live], np.asarray(dys_x[s])[live])
-
-
-@pytest.mark.slow  # backend plumbing over the same kernel as the fused test
-def test_fill_kriging_pallas_backend_matches_xla(grid):
-    from auvtpu.ops import fill_kriging
-
-    with _interp():
-        a = np.asarray(fill_kriging(grid, max_radius=5, backend="pallas"))
-    b = np.asarray(fill_kriging(grid, max_radius=5, backend="xla"))
-    assert (np.isnan(a) == np.isnan(b)).all()
-    both = ~np.isnan(a)
-    np.testing.assert_allclose(a[both], b[both], rtol=1e-4, atol=0.05)
+def _counts(grid, **kw):
+    return np.asarray(window_topk_planes(grid, k=4, **kw)[0])
 
 
 def test_pallas_fill_kriging_fused_matches_xla(grid):
-    from auvtpu.pallas import pallas_fill_kriging
-    from auvtpu.ops import fill_kriging
-
-    with _interp():
-        a = np.asarray(pallas_fill_kriging(grid, max_radius=5, tile=(32, 32)))
-    b = np.asarray(fill_kriging(grid, max_radius=5))
-    assert (np.isnan(a) == np.isnan(b)).all()
-    both = ~np.isnan(a)
-    np.testing.assert_allclose(a[both], b[both], rtol=1e-4, atol=0.05)
-
-
-@pytest.fixture(scope="module")
-def scattered_queries():
-    rng = np.random.default_rng(11)
-    n = 700
-    lons = rng.uniform(-1.0, W, n).astype(np.float32)
-    lats = rng.uniform(-1.0, H, n).astype(np.float32)
-    return lons, lats
-
-
-@pytest.fixture(scope="module")
-def pack(grid):
-    from auvtpu.ops.packs import StencilPack
-
-    return StencilPack(grid, window_radius=2)
-
-
-@pytest.mark.slow  # non-default (non-transposed) packed kernels; valid_select_t gates the default
-def test_pallas_window_select_matches_packs(grid, pack, scattered_queries):
-    from auvtpu.ops.packs import packed_window_select
-    from auvtpu.pallas import pallas_window_select
-
-    lons, lats = scattered_queries
-    want = packed_window_select(pack.window, grid, lons, lats, k=4, window_radius=2)
-    with _interp():
-        got = pallas_window_select(pack.window, grid, lons, lats, k=4, tile_n=256)
-    np.testing.assert_array_equal(np.asarray(got["found"]), np.asarray(want["found"]))
-    ok = np.asarray(want["slot_ok"])
-    np.testing.assert_array_equal(np.asarray(got["slot_ok"]), ok)
-    for key in ("val", "dx", "dy"):
-        np.testing.assert_allclose(
-            np.asarray(got[key])[ok], np.asarray(want[key])[ok], rtol=1e-6
-        )
-    np.testing.assert_allclose(
-        np.asarray(got["d2"])[ok], np.asarray(want["d2"])[ok], rtol=1e-5, atol=1e-6
-    )
-
-
-@pytest.mark.slow  # non-default packed kernel variant
-def test_pallas_packed_kriging_matches_packs(grid, pack, scattered_queries):
-    from auvtpu.ops.packs import packed_kriging
-    from auvtpu.pallas import pallas_packed_kriging
-
-    lons, lats = scattered_queries
-    want = np.asarray(packed_kriging(pack.window, grid, lons, lats))
-    with _interp():
-        got = np.asarray(
-            pallas_packed_kriging(pack.window, grid, lons, lats, tile_n=256)
-        )
-    assert (np.isnan(got) == np.isnan(want)).all()
-    both = ~np.isnan(want)
-    np.testing.assert_allclose(got[both], want[both], rtol=1e-4, atol=1e-3)
-
-
-@pytest.mark.slow  # non-default packed kernel variant
-def test_pallas_packed_kriging_centered_matches_packs(grid, pack, scattered_queries):
-    from auvtpu.ops.packs import packed_kriging
-    from auvtpu.pallas import pallas_packed_kriging
-
-    lons, lats = scattered_queries
-    want = np.asarray(
-        packed_kriging(pack.window, grid, lons, lats, convention="centered")
-    )
-    with _interp():
-        got = np.asarray(
-            pallas_packed_kriging(
-                pack.window, grid, lons, lats, tile_n=256, convention="centered"
-            )
-        )
-    assert (np.isnan(got) == np.isnan(want)).all()
-    both = ~np.isnan(want)
-    np.testing.assert_allclose(got[both], want[both], rtol=1e-4, atol=1e-3)
-
-
-@pytest.mark.slow  # non-default packed kernel variant
-def test_pallas_packed_idw_matches_packs(grid, pack, scattered_queries):
-    from auvtpu.ops.packs import packed_idw
-    from auvtpu.pallas import pallas_packed_idw
-
-    lons, lats = scattered_queries
-    want = np.asarray(packed_idw(pack.window, grid, lons, lats, k=8))
-    with _interp():
-        got = np.asarray(
-            pallas_packed_idw(pack.window, grid, lons, lats, k=8, tile_n=256)
-        )
-    assert (np.isnan(got) == np.isnan(want)).all()
-    both = ~np.isnan(want)
-    np.testing.assert_allclose(got[both], want[both], rtol=1e-4, atol=1e-3)
-
-
-@pytest.mark.slow  # non-default packed kernel variant
-def test_pallas_packed_kriging_fitted_vparams(grid, pack, scattered_queries):
-    """Traced (fitted) variogram params flow through the scalar-prefetch par
-    vector without retracing errors."""
-    import jax.numpy as jnp
-
-    from auvtpu.ops.packs import packed_kriging
-    from auvtpu.pallas import pallas_packed_kriging
-
-    lons, lats = scattered_queries
-    vp = (jnp.float32(0.05), jnp.float32(120.0), jnp.float32(0.8))
-    want = np.asarray(packed_kriging(pack.window, grid, lons, lats, vparams=vp))
-    with _interp():
-        got = np.asarray(
-            pallas_packed_kriging(
-                pack.window, grid, lons, lats, tile_n=256, vparams=vp
-            )
-        )
-    assert (np.isnan(got) == np.isnan(want)).all()
-    both = ~np.isnan(want)
-    np.testing.assert_allclose(got[both], want[both], rtol=1e-4, atol=1e-3)
+    a, cnt = _fused(grid, max_radius=5, with_count=True)
+    np.testing.assert_array_equal(np.asarray(cnt), _counts(grid, max_radius=5))
+    _assert_matches(a, fill_kriging(grid, max_radius=5))
 
 
 def test_pallas_fused_kriging_centered_matches_xla(grid):
-    from auvtpu.pallas import pallas_fill_kriging
-    from auvtpu.ops import fill_kriging
-
-    with _interp():
-        a = np.asarray(
-            pallas_fill_kriging(grid, max_radius=5, tile=(32, 32), convention="centered")
-        )
-    b = np.asarray(fill_kriging(grid, max_radius=5, convention="centered"))
-    assert (np.isnan(a) == np.isnan(b)).all()
-    both = ~np.isnan(a)
-    np.testing.assert_allclose(a[both], b[both], rtol=1e-4, atol=0.05)
+    a, cnt = _fused(grid, max_radius=5, convention="centered", with_count=True)
+    np.testing.assert_array_equal(
+        np.asarray(cnt), _counts(grid, max_radius=5, convention="centered")
+    )
+    _assert_matches(a, fill_kriging(grid, max_radius=5, convention="centered"))
 
 
-@pytest.mark.slow  # zoo variants of the fused kernel (exponential gated fast)
 @pytest.mark.parametrize("model", ["spherical", "gaussian", "linear"])
 def test_pallas_fused_kriging_model_zoo_matches_xla(grid, model):
-    from auvtpu.ops import fill_kriging
-    from auvtpu.pallas import pallas_fill_kriging
-
     vp = (0.5, 120.0, 6.0)
-    with _interp():
-        a = np.asarray(
-            pallas_fill_kriging(grid, max_radius=5, tile=(32, 32), vparams=vp, model=model)
-        )
-    b = np.asarray(fill_kriging(grid, max_radius=5, vparams=vp, model=model))
-    assert (np.isnan(a) == np.isnan(b)).all()
-    both = ~np.isnan(a)
-    np.testing.assert_allclose(a[both], b[both], rtol=1e-4, atol=0.05)
-
-
-def test_valid_select_t_matches_valid16(scattered_queries):
-    """Transposed fused select (queries-in-lanes) == the XLA valid16 path,
-    ties included, on a fully-valid grid."""
-    from auvtpu.ops.packs import (
-        VALID16_OFFSETS, _normalize, build_valid16_pack, fetch_pack,
-        packed_kriging_valid, select_from_stencil,
+    _assert_matches(
+        _fused(grid, max_radius=5, vparams=vp, model=model),
+        fill_kriging(grid, max_radius=5, vparams=vp, model=model),
     )
-    from auvtpu.pallas import pallas_kriging_valid, valid_select_t
-    import jax.numpy as jnp
-
-    gv = RegularGrid.dense(
-        shelf_seamount(H, W), Extent(0.0, float(W - 1), 0.0, float(H - 1))
-    )
-    lons, lats = scattered_queries
-    p16 = build_valid16_pack(gv)
-    x, y, oob = _normalize(gv, lons, lats)
-    ci = jnp.clip(jnp.floor(x + 0.5).astype(jnp.int32), 0, W - 1)
-    cj = jnp.clip(jnp.floor(y + 0.5).astype(jnp.int32), 0, H - 1)
-    st = fetch_pack(p16, 16, cj * W + ci)
-    want = select_from_stencil(st, VALID16_OFFSETS, x, y, oob, ci, cj, k=4)
-    with _interp():
-        got = valid_select_t(p16, gv, lons, lats, tile_n=256)
-    np.testing.assert_array_equal(
-        np.asarray(got["found"]), np.asarray(want["found"])
-    )
-    ok = np.asarray(want["slot_ok"])
-    np.testing.assert_array_equal(np.asarray(got["slot_ok"]), ok)
-    for key in ("val", "dx", "dy", "d2"):
-        np.testing.assert_allclose(
-            np.asarray(got[key])[ok], np.asarray(want[key])[ok], rtol=1e-6
-        )
-    want_k = np.asarray(packed_kriging_valid(p16, gv, lons, lats))
-    with _interp():
-        got_k = np.asarray(pallas_kriging_valid(p16, gv, lons, lats, tile_n=256))
-    assert (np.isnan(got_k) == np.isnan(want_k)).all()
-    both = ~np.isnan(want_k)
-    np.testing.assert_allclose(got_k[both], want_k[both], rtol=1e-5, atol=1e-4)
-
-
-def _tie_queries(scattered_queries):
-    lons, lats = scattered_queries
-    # adversarial positions: exact cell centers (max-tie case) and the
-    # half-integer tie lines between cells, plus corners/edges
-    extra_lo = np.array([3.0, 4.5, 10.0, 77.5, 0.0, 0.5, float(W - 1)], np.float32)
-    extra_la = np.array([5.0, 6.5, 90.5, 2.0, 0.0, 1.5, float(H - 1)], np.float32)
-    return np.concatenate([lons, extra_lo]), np.concatenate([lats, extra_la])
-
-
-@pytest.mark.parametrize("masked", [False, True])
-def test_pallas_packed_idw_t_matches_packed(scattered_queries, grid, masked):
-    """In-kernel transposed IDW (full window pack, k=8) == the windowed XLA
-    packed_idw, on masked AND fully-valid grids, ties/edges included."""
-    from auvtpu.ops.packs import StencilPack, packed_idw
-    from auvtpu.pallas import pallas_packed_idw_t
-
-    g = grid if masked else RegularGrid.dense(
-        shelf_seamount(H, W), Extent(0.0, float(W - 1), 0.0, float(H - 1))
-    )
-    lons, lats = _tie_queries(scattered_queries)
-    sp = StencilPack(g, window_radius=2)
-    want = np.asarray(packed_idw(sp.window, g, lons, lats, k=8))
-    with _interp():
-        got = np.asarray(pallas_packed_idw_t(sp.window, g, lons, lats, k=8, tile_n=256))
-    assert (np.isnan(got) == np.isnan(want)).all()
-    both = ~np.isnan(want)
-    np.testing.assert_allclose(got[both], want[both], rtol=2e-5, atol=1e-4)
-
-
-@pytest.mark.parametrize("masked", [False, True])
-def test_pallas_packed_kriging_t_matches_packed(scattered_queries, grid, masked):
-    """Transposed-select kriging (full window pack) == packed_kriging on
-    masked AND fully-valid grids, ties/edges included."""
-    from auvtpu.ops.packs import StencilPack, packed_kriging
-    from auvtpu.pallas import pallas_packed_kriging_t
-
-    g = grid if masked else RegularGrid.dense(
-        shelf_seamount(H, W), Extent(0.0, float(W - 1), 0.0, float(H - 1))
-    )
-    lons, lats = _tie_queries(scattered_queries)
-    sp = StencilPack(g, window_radius=2)
-    want = np.asarray(packed_kriging(sp.window, g, lons, lats))
-    with _interp():
-        got = np.asarray(pallas_packed_kriging_t(sp.window, g, lons, lats, tile_n=256))
-    assert (np.isnan(got) == np.isnan(want)).all()
-    both = ~np.isnan(want)
-    np.testing.assert_allclose(got[both], want[both], rtol=1e-5, atol=1e-4)
-
-
-@pytest.mark.slow  # radius variant of the select kernel
-def test_pallas_window_select_radius3(grid, scattered_queries):
-    # P=64 / 2 sub-blocks per row: the kernel's sub-block masking must hold
-    # for non-default radii too
-    from auvtpu.ops.packs import StencilPack, packed_window_select
-    from auvtpu.pallas import pallas_window_select
-
-    sp3 = StencilPack(grid, window_radius=3)
-    lons, lats = scattered_queries
-    want = packed_window_select(sp3.window, grid, lons, lats, k=4, window_radius=3)
-    with _interp():
-        got = pallas_window_select(
-            sp3.window, grid, lons, lats, k=4, window_radius=3, tile_n=256
-        )
-    np.testing.assert_array_equal(np.asarray(got["found"]), np.asarray(want["found"]))
-    ok = np.asarray(want["slot_ok"])
-    for key in ("val", "dx", "dy"):
-        np.testing.assert_allclose(
-            np.asarray(got[key])[ok], np.asarray(want[key])[ok], rtol=1e-6
-        )
-
-
-@pytest.mark.slow  # alternate solver; gj (default) gated fast
-def test_pallas_fused_kriging_lu_matches_gj(grid):
-    """The LU (forward elim + back-sub) solve must agree with the
-    Gauss-Jordan solve to f32 roundoff on the same selected neighborhoods
-    (identical selection: both solvers share the kernel's first-k loop)."""
-    from auvtpu.pallas import pallas_fill_kriging
-
-    with _interp():
-        a = np.asarray(pallas_fill_kriging(grid, max_radius=5, tile=(32, 32), solver="lu"))
-        b = np.asarray(pallas_fill_kriging(grid, max_radius=5, tile=(32, 32), solver="gj"))
-    assert (np.isnan(a) == np.isnan(b)).all()
-    both = ~np.isnan(a)
-    np.testing.assert_allclose(a[both], b[both], rtol=1e-4, atol=1e-3)
-
-
-@pytest.mark.slow  # edge geometry; _clamp_tile unit test gates the fast lane
-def test_pallas_single_tile_grid():
-    """One-program grids exercise the double-buffer warmup-only path (the
-    steady-state prefetch branch never fires when lin == last)."""
-    from auvtpu.ops import fill_idw, fill_kriging
-    from auvtpu.pallas import pallas_fill_idw, pallas_fill_kriging
-
-    elev = shelf_seamount(32, 32)
-    elev, _, _ = mask_grid(elev, 0.3, seed=5)
-    g = RegularGrid.from_nan_array(elev, Extent(0.0, 31.0, 0.0, 31.0))
-    with _interp():
-        a = np.asarray(pallas_fill_kriging(g, max_radius=5, tile=(32, 32)))
-        d = np.asarray(pallas_fill_idw(g, k=8, max_radius=5, tile=(32, 32)))
-    b = np.asarray(fill_kriging(g, max_radius=5))
-    e = np.asarray(fill_idw(g, k=8, max_radius=5))
-    assert (np.isnan(a) == np.isnan(b)).all()
-    both = ~np.isnan(a)
-    np.testing.assert_allclose(a[both], b[both], rtol=1e-4, atol=0.05)
-    np.testing.assert_array_equal(np.isnan(d), np.isnan(e))
-    both = ~np.isnan(d)
-    np.testing.assert_allclose(d[both], e[both], rtol=1e-5, atol=1e-3)
 
 
 def test_pallas_fill_kriging_variance_matches_xla(grid):
-    from auvtpu.ops import fill_kriging
-    from auvtpu.pallas import pallas_fill_kriging
-
-    with _interp():
-        a, av = pallas_fill_kriging(
-            grid, max_radius=5, tile=(32, 32), with_variance=True
-        )
-        a, av = np.asarray(a), np.asarray(av)
+    a, av = _fused(grid, max_radius=5, with_variance=True)
     b, bv = fill_kriging(grid, max_radius=5, with_variance=True)
-    b, bv = np.asarray(b), np.asarray(bv)
-    assert (np.isnan(a) == np.isnan(b)).all()
-    assert (np.isnan(av) == np.isnan(bv)).all()
-    both = ~np.isnan(a)
-    np.testing.assert_allclose(a[both], b[both], rtol=1e-4, atol=0.05)
-    vboth = ~np.isnan(av)
-    assert (av[vboth] >= 0).all()
-    np.testing.assert_allclose(av[vboth], bv[vboth], rtol=1e-3, atol=0.05)
-    # the prediction plane must be identical whether or not the variance
-    # plane is requested
-    with _interp():
-        plain = np.asarray(pallas_fill_kriging(grid, max_radius=5, tile=(32, 32)))
-    assert np.array_equal(plain, a, equal_nan=True)
+    _assert_matches(a, b)
+    _assert_matches(av, bv, rtol=1e-3)
+    assert (np.asarray(av)[~np.isnan(np.asarray(av))] >= 0).all()
+    # the prediction plane is the same whether or not variance is requested
+    assert np.array_equal(np.asarray(_fused(grid, max_radius=5)), np.asarray(a), equal_nan=True)
 
 
-@pytest.mark.slow  # subplane geometry also exercised by the sharded fused test
 def test_pallas_fill_kriging_subplane_matches_xla(grid):
-    """row0/col0/steps (sharded-block geometry) must match the XLA path."""
-    from auvtpu.ops import fill_kriging
-    from auvtpu.pallas import pallas_fill_kriging
-
+    """row0/col0/steps (sharded-block and streaming-window geometry)."""
     kw = dict(max_radius=5, row0=7, col0=13, steps=(0.021, 0.037))
-    with _interp():
-        a = np.asarray(pallas_fill_kriging(grid, tile=(32, 32), **kw))
-    b = np.asarray(fill_kriging(grid, **kw))
-    assert (np.isnan(a) == np.isnan(b)).all()
-    both = ~np.isnan(a)
-    np.testing.assert_allclose(a[both], b[both], rtol=1e-4, atol=0.05)
+    _assert_matches(_fused(grid, **kw), fill_kriging(grid, **kw))
 
 
-@pytest.mark.slow  # peel edge case (radius 1, no dynamic chunks)
-def test_pallas_pure_peel_radius1(grid):
-    """max_radius=1: the offset table IS chunk 0, so the while_loop body
-    never runs — the peel must stand alone (boundary of the chunk-0 peel)."""
-    from auvtpu.ops import fill_idw, fill_window_mean
-    from auvtpu.pallas import pallas_fill_idw, pallas_fill_mean
-
-    with _interp():
-        gi = np.asarray(pallas_fill_idw(grid, k=4, max_radius=1, tile=(32, 32)))
-        gm = np.asarray(pallas_fill_mean(grid, k=4, max_radius=1, tile=(32, 32)))
-    wi = np.asarray(fill_idw(grid, k=4, max_radius=1))
-    wm = np.asarray(fill_window_mean(grid, k=4, max_radius=1))
-    for got, want in ((gi, wi), (gm, wm)):
-        assert (np.isnan(got) == np.isnan(want)).all()
-        m = ~np.isnan(want)
-        np.testing.assert_allclose(got[m], want[m], rtol=1e-5, atol=1e-3)
+def test_pallas_fitted_vparams_traced(grid):
+    """Traced (fitted) variogram parameters flow through the kernel's
+    parameter vector."""
+    vp = (jnp.float32(0.05), jnp.float32(120.0), jnp.float32(0.8))
+    got = jax.jit(lambda g, v: _fused(g, max_radius=5, vparams=v))(grid, vp)
+    _assert_matches(got, fill_kriging(grid, max_radius=5, vparams=vp))
 
 
-def test_clamp_tile_shrinks_to_grid():
-    # pure-function gate for the small-grid path (the interpret-mode
-    # single-tile test is slow-marked): a requested tile larger than the
-    # (8,128)-aligned plane must shrink to it, preserving alignment
-    from auvtpu.pallas.window_fill import _clamp_tile
-
-    assert _clamp_tile((12, 64), (64, 256)) == (16, 128)
-    assert _clamp_tile((96, 80), (32, 32)) == (32, 32)      # no-op when smaller
-    assert _clamp_tile((96, 80), (64, 256)) == (64, 128)
-    assert _clamp_tile((7, 100), (64, 256)) == (8, 128)     # floors at one vreg tile
-    assert _clamp_tile((2000, 3000), (64, 256)) == (64, 256)
+@pytest.mark.parametrize("shape", [(45, 70), (17, 33), (16, 64)])
+def test_pallas_ragged_edge_tiles(shape):
+    """Grids that are not multiples of the (16, 64) tile (and one exactly
+    one tile): the padded tail starts saturated and is sliced off."""
+    g = _grid(*shape, removal=0.25, seed=5)
+    a, cnt = _fused(g, max_radius=5, with_count=True)
+    assert np.asarray(a).shape == shape
+    np.testing.assert_array_equal(np.asarray(cnt), _counts(g, max_radius=5))
+    _assert_matches(a, fill_kriging(g, max_radius=5))
 
 
-def test_pallas_band_resample_matches_xla():
-    # the VMEM-fused resample must agree with ops.band._band_resample on
-    # every query both paths resolve, and resolve a superset (wider aligned
-    # window)
-    import jax.numpy as jnp
-
-    from auvtpu.ops.band import _band_resample
-    from auvtpu.pallas.band_resample import pallas_band_resample
-
-    plane = jnp.asarray(shelf_seamount(120, 384), jnp.float32)
-    R, C = plane.shape
-    n, chunk = 2048, 256
-    rng = np.random.default_rng(0)
-    t = np.linspace(0, 1, n)
-    x = np.clip(1.0 + t * (C - 3) + rng.normal(0, 0.05, n), 0.5, C - 1.5)
-    y = np.clip(R * 0.5 + 10 * np.sin(t * 30 * np.pi)
-                + rng.normal(0, 0.05, n), 0.5, R - 1.5)
-    xd = jnp.asarray(x, jnp.float32)
-    yd = jnp.asarray(y, jnp.float32)
-    with _interp():
-        z, ok = pallas_band_resample(plane, xd, yd, chunk=chunk, wr=48, wc=128)
-    zx, okx = _band_resample(plane, None, xd, yd, chunk=chunk, wr=48, wc=128,
-                             masked=False)
-    z, ok, zx, okx = map(np.asarray, (z, ok, zx, okx))
-    assert (ok.astype(int) >= okx.astype(int)).all()
-    both = ok & okx
-    np.testing.assert_array_equal(z[both], zx[both])
-    assert np.isnan(z[~ok]).all()
+def test_pallas_heavy_mask_defeats_early_exit():
+    """60% removal: tiles keep scanning far past the first chunks, and
+    cells with no 4 valid neighbours inside the radius take the mean
+    fallback (or NaN with none at all)."""
+    g = _grid(64, 64, removal=0.6, seed=3)
+    a, cnt = _fused(g, max_radius=2, with_count=True)
+    want_cnt = _counts(g, max_radius=2)
+    np.testing.assert_array_equal(np.asarray(cnt), want_cnt)
+    assert (want_cnt < 4).any()
+    _assert_matches(a, fill_kriging(g, max_radius=2))
 
 
-def test_pallas_atlas_resample_matches_xla():
-    import jax.numpy as jnp
+def test_pallas_radius1_single_chunk(grid):
+    """max_radius=1: the whole offset table is one chunk."""
+    a, cnt = _fused(grid, max_radius=1, with_count=True)
+    np.testing.assert_array_equal(np.asarray(cnt), _counts(grid, max_radius=1))
+    _assert_matches(a, fill_kriging(grid, max_radius=1))
 
-    from auvtpu.ops.band import _atlas_resample
-    from auvtpu.pallas.band_resample import pallas_atlas_resample
 
-    K, R, C = 3, 64, 256
-    rng = np.random.default_rng(1)
-    planes = jnp.asarray(rng.normal(0, 100, (K, R, C)), jnp.float32)
-    origins = jnp.asarray([[0.0, 0.0], [64.0, 200.0], [128.0, 400.0]],
-                          jnp.float32)
-    # queries walk through all three pages (grid-frame coords)
-    n, chunk = 1536, 128
-    t = np.linspace(0, 1, n)
-    x = 2.0 + t * 600.0
-    y = 2.0 + t * 180.0 + 3 * np.sin(t * 25 * np.pi)
-    xd = jnp.asarray(x, jnp.float32)
-    yd = jnp.asarray(y, jnp.float32)
-    vmasks = jnp.ones_like(planes)
-    with _interp():
-        z, ok = pallas_atlas_resample(planes, origins, xd, yd, chunk=chunk,
-                                      wr=32, wc=128)
-    zx, okx = _atlas_resample(planes, vmasks, origins, xd, yd, chunk=chunk,
-                              wr=32, wc=128, masked=False)
-    z, ok, zx, okx = map(np.asarray, (z, ok, zx, okx))
-    assert ok.mean() > 0.8 and (ok.astype(int) >= okx.astype(int)).all()
-    both = ok & okx
-    np.testing.assert_array_equal(z[both], zx[both])
-    assert np.isnan(z[~ok]).all()
+def test_pallas_rejects_f64(grid):
+    jax.config.update("jax_enable_x64", True)
+    try:
+        g64 = RegularGrid.from_nan_array(grid.to_nan_array(), grid.extent, dtype=np.float64)
+        with pytest.raises(ValueError, match="f32"):
+            fused_fill_kriging(g64, interpret=True)
+    finally:
+        jax.config.update("jax_enable_x64", False)
+
+
+def test_fused_backend_lowers_to_one_triton_call(grid):
+    """fill_kriging(backend='fused') lowered for CUDA (no card needed) is
+    one Triton kernel call; the xla backend has none."""
+    fused = jax.jit(lambda g: fill_kriging(g, backend="fused"))
+    txt = fused.trace(grid).lower(lowering_platforms=("cuda",)).as_text()
+    assert txt.count("__gpu$xla.gpu.triton") == 1
+    xla = jax.jit(lambda g: fill_kriging(g, backend="xla"))
+    assert "triton" not in xla.trace(grid).lower(lowering_platforms=("cuda",)).as_text()
+
+
+@pytest.mark.gpu
+def test_fused_kernel_compiled_matches_xla_on_gpu(gpu):
+    """The kernel as compiled for the card (no interpreter) vs the XLA path."""
+    g = _grid(300, 500, removal=0.1, seed=1)
+    a, cnt = fused_fill_kriging(g, with_count=True)
+    np.testing.assert_array_equal(np.asarray(cnt), _counts(g))
+    got, want = np.asarray(a), np.asarray(fill_kriging(g, backend="xla"))
+    assert (np.isnan(got) == np.isnan(want)).all()
+    m = ~np.isnan(want)
+    err = np.abs(got[m] - want[m])
+    assert (err <= 1e-3).mean() >= 0.999 and err.max() <= 0.05
